@@ -3,8 +3,8 @@
 
 Runs the BASELINE.json headline config (1M synthetic 768-d vectors,
 1024-query batch, top-100, bf16 scoring with f32 accumulation) through the
-exact sharded search engine on whatever devices are visible (the real TPU
-chip under the driver; override the suite with BENCH_SUITE).
+exact sharded search engine on whatever devices are visible (override the
+suite with BENCH_SUITE).
 
 The reference publishes no absolute numbers (BASELINE.md), so ``vs_baseline``
 is engine queries/sec divided by 24x an in-process-measured NumPy serial scan
@@ -27,13 +27,14 @@ def main() -> int:
     suite = os.environ.get("BENCH_SUITE", "battery")
     from better_search_rag_rust_tpu.bench.suite import (
         compact_battery_summary, run_suite)
+    from better_search_rag_rust_tpu.launch import enable_compile_cache
+
+    enable_compile_cache()
 
     result = run_suite(suite)
     if "battery" in result:
-        # The driver captures only the last ~2000 stdout chars; the full
-        # battery detail (~2.3 kB in round 3) overflowed it and the
-        # artifact lost the headline (BENCH_r03.json parsed=null). Full
-        # detail goes to a file; stdout gets ONE compact line (<=1.5 kB).
+        # Full detail goes to a file; stdout gets ONE compact line
+        # (<=1.5 kB) that survives a capture of only the output's tail.
         detail_path = os.environ.get(
             "BSR_BENCH_DETAIL",
             os.path.join(os.path.dirname(os.path.abspath(__file__)),

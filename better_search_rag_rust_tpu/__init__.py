@@ -1,6 +1,6 @@
-"""better_search_rag_rust_tpu — TPU-native exact top-k retrieval framework for RAG.
+"""better_search_rag_rust_tpu — exact top-k retrieval framework for RAG.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of the Rust+MPI reference
+A ground-up JAX/XLA rebuild of the capabilities of the Rust+MPI reference
 ``nichmorgan/better-search-rag-rust`` (see SURVEY.md):
 
 1. Corpus ingestion           -> :mod:`.corpus`        (reference: src/source.rs)
@@ -12,7 +12,7 @@ A ground-up JAX/XLA/Pallas rebuild of the capabilities of the Rust+MPI reference
                                  :mod:`.bench`         (reference: src/metrics.rs,
                                                         src/mpi_helpers/benchmark.rs)
 
-The distribution model is TPU-first: a ``jax.sharding.Mesh`` over a device axis
+The distribution model is device-mesh first: a ``jax.sharding.Mesh`` over a device axis
 replaces MPI ranks, block sharding of the embedding store replaces
 ``interval_by_rank``, and ``shard_map`` + ``all_gather`` + ``lax.top_k`` replace
 the reference's hand-rolled gather-v over p2p sends.

@@ -19,7 +19,7 @@ length-prefixed p2p sends of name bytes / f64 seconds / i32 item counts with a
 names are identical on every host by construction (SPMD), so no byte-shipping
 exists at all. On a single host it degrades to the identity.
 
-TPU-specific: ``stop()`` optionally blocks on a JAX array first, because an
+Device-specific: ``stop()`` optionally blocks on a JAX array first, because an
 un-synchronized timer would measure dispatch, not execution.
 """
 

@@ -66,10 +66,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     st.add_argument("--store-dir", default=".volumes/vstore",
                     help="vector store directory (src/main.rs:41)")
     st.add_argument("--snapshot", action="store_true",
-                    help="maintain an Orbax device-store snapshot for fast "
+                    help="maintain a device-store snapshot for fast "
                          "serve startup")
     st.add_argument("--force-merge", action="store_true",
-                    help="let a merge rebuild global.parquet even when an "
+                    help="let a merge rebuild global.npy even when an "
                          "incremental update left it ahead of the shards "
                          "(the appended rows are DISCARDED; only safe after "
                          "a full re-ingest)")
@@ -83,16 +83,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                       choices=["bfloat16", "float32"])
     srch.add_argument("--chunk-rows", type=int, default=16384)
     srch.add_argument("--search-kernel", default="auto",
-                      choices=["auto", "global", "scan", "blockmax", "pallas",
-                               "rescore", "f32cert"])
-    srch.add_argument("--rescore-argmax", default="auto",
-                      choices=["auto", "off"],
-                      help="argmax fast path of the rescore kernel "
-                           "(candidates from in-kernel unit argmaxes; "
-                           "only danger units gathered)")
-    srch.add_argument("--danger-units", type=int, default=4,
-                      help="per-query danger-unit gather capacity for the "
-                           "argmax fast path")
+                      choices=["auto", "global", "scan", "blockmax"])
     srch.add_argument("--query-upload", default="f32",
                       choices=["f32", "store"],
                       help="streaming/serve query upload: 'store' rounds "
@@ -141,8 +132,6 @@ def _config_from_args(args, skip_process: bool) -> PipelineConfig:
             store_dtype=args.store_dtype,
             chunk_rows=args.chunk_rows,
             kernel=args.search_kernel,
-            rescore_argmax=getattr(args, "rescore_argmax", "auto"),
-            danger_units=getattr(args, "danger_units", 4),
             query_upload=getattr(args, "query_upload", "f32"),
         ),
         skip_process=skip_process,
@@ -380,8 +369,8 @@ def _serve(args) -> int:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(
-        prog="bsr-tpu",
-        description="TPU-native exact top-k retrieval framework",
+        prog="bsr",
+        description="exact top-k retrieval framework",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -434,7 +423,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ft.add_argument("--tp", type=int, default=1,
                     help="model (tensor-parallel) mesh axis size")
     ft.add_argument("--save-dir", default=None,
-                    help="Orbax checkpoint dir for the tuned params")
+                    help="checkpoint dir for the tuned params")
 
     bp = sub.add_parser("bench", help="performance benchmark suite")
     bp.add_argument("--suite", default="search_1m",
@@ -444,9 +433,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     args = parser.parse_args(argv)
 
-    from .launch import maybe_init_distributed
+    from .launch import enable_compile_cache, maybe_init_distributed
 
     maybe_init_distributed()
+    enable_compile_cache()
 
     from contextlib import nullcontext
 

@@ -1,27 +1,48 @@
-"""Multi-host launch helpers — the TPU-native replacement for the
-reference's launch infra (reference: makefile:13-14 ``mpiexec -n $(N)``,
-run-slurm.sh, hostfile ``localhost slots=32``).
+"""Launch helpers: multi-process cluster join and the compile cache — the
+replacement for the reference's launch infra (reference: makefile:13-14
+``mpiexec -n $(N)``, run-slurm.sh, hostfile ``localhost slots=32``).
 
-On TPU pods there is no mpiexec: every host runs the same program and joins
-the cluster via ``jax.distributed.initialize``. GKE/GCE TPU environments
-inject the coordinator automatically; elsewhere, set:
+There is no mpiexec: every process runs the same program and joins the
+cluster via ``jax.distributed.initialize``, configured by:
 
     BSR_COORDINATOR=host0:8476  BSR_NUM_PROCESSES=4  BSR_PROCESS_ID=0..3
-
-`scripts/launch_pod.sh` fans the same command out to every pod worker.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from pathlib import Path
 
 from .utils.logging import host_log
 
+#: Compile-cache directory used when ``JAX_COMPILATION_CACHE_DIR`` is unset:
+#: a fixed path in the checkout, because the path is part of the cache key.
+DEFAULT_COMPILE_CACHE = Path(__file__).resolve().parent.parent / ".jax_cache"
+
+
+def compile_cache_dir() -> str:
+    """``JAX_COMPILATION_CACHE_DIR`` when set, else the checkout's
+    ``.jax_cache``."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or str(
+        DEFAULT_COMPILE_CACHE
+    )
+
+
+def enable_compile_cache() -> str:
+    """Point JAX's persistent compilation cache at :func:`compile_cache_dir`
+    (JAX itself reads ``JAX_COMPILATION_CACHE_DIR``, so nothing changes when
+    it is set). Call before the first compile; returns the directory."""
+    import jax
+
+    path = compile_cache_dir()
+    if jax.config.jax_compilation_cache_dir != path:
+        jax.config.update("jax_compilation_cache_dir", path)
+    return path
+
 
 def maybe_init_distributed() -> bool:
-    """Join the multi-host cluster when the env asks for it; no-op (False)
-    for single-host runs. Safe to call more than once.
+    """Join the multi-process cluster when the env asks for it; no-op
+    (False) for single-process runs. Safe to call more than once.
 
     Must run BEFORE anything touches the XLA backend, so the
     already-initialized check inspects the distributed client directly
@@ -29,22 +50,12 @@ def maybe_init_distributed() -> bool:
     """
     import jax
 
-    try:
-        initialized = jax.distributed.is_initialized()
-    except AttributeError:  # older jax: fall back to the private state
-        try:
-            from jax._src import distributed as _dist
-
-            initialized = getattr(_dist.global_state, "client", None) is not None
-        except Exception:
-            initialized = False
-    if initialized:
+    if jax.distributed.is_initialized():
         return True  # explicitly initialized earlier
     coord = os.environ.get("BSR_COORDINATOR")
     nproc = os.environ.get("BSR_NUM_PROCESSES")
     if not coord or not nproc:
-        # No env contract: rely on platform auto-injection (GKE/GCE pods).
-        return jax.process_count() > 1
+        return False
     pid = int(os.environ.get("BSR_PROCESS_ID", "0"))
     jax.distributed.initialize(
         coordinator_address=coord,

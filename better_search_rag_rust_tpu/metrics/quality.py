@@ -15,7 +15,7 @@ Capability parity with the reference's metric kernels
 
 ``top_k_overlap`` is the reference's parallel-vs-sequential exactness oracle
 (SURVEY.md §4); the search test-harness asserts it equals 1.0 between the
-TPU engine and the serial scan.
+device engine and the serial scan.
 """
 
 from __future__ import annotations

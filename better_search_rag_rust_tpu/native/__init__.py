@@ -1,7 +1,7 @@
 """Native (C++) runtime components, loaded over ctypes.
 
-The reference's runtime is 100% native Rust (SURVEY.md §2); the TPU compute
-path here is JAX/XLA/Pallas, and the host-side runtime pieces that the
+The reference's runtime is 100% native Rust (SURVEY.md §2); the device
+compute path here is JAX/XLA, and the host-side runtime pieces that the
 reference implemented natively are C++:
 
 * ``bsr_corpus.cpp`` — multithreaded corpus walker + capped file reader

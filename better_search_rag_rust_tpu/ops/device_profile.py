@@ -1,125 +1,67 @@
-"""Per-device-kind performance profiles for the search planner.
+"""Published peak rates per device kind, for utilization (MFU) reporting.
 
-The engine's tile/chunk planner (:meth:`.engine.SearchEngine._plan`) costs
-candidate layouts from a handful of device constants. Exactness NEVER
-depends on these — a bad profile only mis-sizes tiles — but perf
-portability does, so the v5e measurements live here as one row of a table
-instead of being hardcoded, with spec-derived estimates for the other TPU
-generations and a config override for anything unlisted.
+Keyed by ``jax.Device.device_kind`` matched EXACTLY: an H100 PCIe or a
+future card must get its own row (its own data-sheet figures), never the
+SXM part's peaks by a prefix match. An unknown kind raises.
 
-Measured row (v5e): effective HBM streaming ~700 GB/s (of 819 spec — the
-0.85 factor is applied to the other generations' spec numbers), candidate
-gather ~130 ns per (query, block) dynamic slice, final ``top_k`` ~5.7 us
-per query per macro chunk. Spec sources: TPU system architecture docs
-(v4 1228 GB/s / 275 Tflops bf16 / 32 GB; v5e 819 / 197 / 16;
-v5p 2765 / 459 / 95; v6e 1640 / 918 / 32).
+H100 SXM row: NVIDIA H100 Tensor Core GPU data sheet (SXM5, dense rates
+without sparsity, at the 700 W power limit): 80 GB HBM3 at 3.35 TB/s,
+989 TFLOP/s bf16, 1,979 TOP/s int8. The ``cpu`` row (the emulated test
+devices) has no published peak: MFU reads None there.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 from typing import Optional
 
 
 @dataclass(frozen=True)
 class DeviceProfile:
     kind: str
-    hbm_gb: float  #: device HBM capacity
-    hbm_gbps: float  #: effective streaming bandwidth (GB/s)
-    slice_ns: float  #: per-(query, block) dynamic-slice gather cost
-    final_topk_us: float  #: per-query final top_k cost per macro chunk
-    peak_bf16_tflops: float  #: dense bf16 matmul peak (MFU reporting)
+    hbm_gb: Optional[float]  #: device memory capacity
+    hbm_gbps: Optional[float]  #: peak memory bandwidth (GB/s)
+    peak_bf16_tflops: Optional[float]  #: dense bf16 matmul peak
+    peak_int8_tops: Optional[float]  #: dense int8 matmul peak
 
 
-_MEASURED_EFFICIENCY = 700.0 / 819.0  # v5e measured / spec
-
-
-def _derived(kind: str, hbm_gb: float, spec_gbps: float,
-             peak_tflops: float) -> DeviceProfile:
-    # Bandwidth scales by the measured v5e efficiency; the slice and top_k
-    # costs are issue-rate/sort-unit bound and measured only on v5e — kept
-    # constant (conservative) for other generations.
-    return DeviceProfile(
-        kind=kind,
-        hbm_gb=hbm_gb,
-        hbm_gbps=spec_gbps * _MEASURED_EFFICIENCY,
-        slice_ns=130.0,
-        final_topk_us=5.7,
-        peak_bf16_tflops=peak_tflops,
-    )
-
-
-#: Longest-prefix match against ``device.device_kind``.
 PROFILES = {
-    "TPU v5 lite": _derived("TPU v5 lite", 16, 819, 197),
-    "TPU v5e": _derived("TPU v5e", 16, 819, 197),
-    "TPU v5p": _derived("TPU v5p", 95, 2765, 459),
-    "TPU v5": _derived("TPU v5", 95, 2765, 459),
-    "TPU v4": _derived("TPU v4", 32, 1228, 275),
-    "TPU v6 lite": _derived("TPU v6 lite", 32, 1640, 918),
-    "TPU v6e": _derived("TPU v6e", 32, 1640, 918),
-    "TPU7x": _derived("TPU7x", 192, 7400, 2307),
+    "NVIDIA H100 80GB HBM3": DeviceProfile(
+        kind="NVIDIA H100 80GB HBM3", hbm_gb=80, hbm_gbps=3350,
+        peak_bf16_tflops=989, peak_int8_tops=1979,
+    ),
+    "cpu": DeviceProfile(
+        kind="cpu", hbm_gb=None, hbm_gbps=None,
+        peak_bf16_tflops=None, peak_int8_tops=None,
+    ),
 }
 
-#: Unknown devices (CPU emulation, future TPUs): v5e numbers — safe tiles.
-DEFAULT_PROFILE = PROFILES["TPU v5 lite"]
 
-
-def resolve_profile(
-    kind: str,
-    hbm_gb: float = 0.0,
-    hbm_gbps: float = 0.0,
-    slice_ns: float = 0.0,
-    final_topk_us: float = 0.0,
-) -> DeviceProfile:
-    """Longest-prefix table lookup for ``kind`` with per-field overrides
-    (0 = keep the table value)."""
-    best: Optional[DeviceProfile] = None
-    best_len = -1
-    low = (kind or "").lower()
-    for name, prof in PROFILES.items():
-        if low.startswith(name.lower()) and len(name) > best_len:
-            best, best_len = prof, len(name)
-    prof = best or DEFAULT_PROFILE
-    fields = {}
-    if hbm_gb > 0:
-        fields["hbm_gb"] = hbm_gb
-    if hbm_gbps > 0:
-        fields["hbm_gbps"] = hbm_gbps
-    if slice_ns > 0:
-        fields["slice_ns"] = slice_ns
-    if final_topk_us > 0:
-        fields["final_topk_us"] = final_topk_us
-    return replace(prof, **fields) if fields else prof
+def resolve_profile(kind: str) -> DeviceProfile:
+    """The table row for ``kind``; raises ``KeyError`` for unknown kinds."""
+    try:
+        return PROFILES[kind]
+    except KeyError:
+        raise KeyError(
+            f"no device profile for device kind {kind!r}; add its "
+            f"published peaks to ops/device_profile.py (known: "
+            f"{sorted(PROFILES)})"
+        ) from None
 
 
 def peak_bf16_flops(kind: str) -> Optional[float]:
-    """Peak bf16 FLOP/s for a known device kind, or None when the kind is
-    not in the table (MFU is then not reported rather than fabricated)."""
-    low = (kind or "").lower()
-    best = None
-    best_len = -1
-    for name, prof in PROFILES.items():
-        if low.startswith(name.lower()) and len(name) > best_len:
-            best, best_len = prof, len(name)
-    return best.peak_bf16_tflops * 1e12 if best else None
+    """Peak dense bf16 FLOP/s for ``kind`` (None where no peak is
+    published)."""
+    tflops = resolve_profile(kind).peak_bf16_tflops
+    return tflops * 1e12 if tflops else None
 
 
 def peak_matmul_flops(kind: str, dtype) -> Optional[float]:
-    """Peak matmul op rate for MFU reporting at an operand dtype: int8
-    doubles the MXU rate on v5e+ (v5e 394 TOPS vs 197 TFLOPS bf16; v4 has
-    no int8 speedup), every other dtype reports against the bf16 peak."""
+    """Peak matmul op rate at an operand dtype: the int8 rate for int8
+    stores, the bf16 rate for every other dtype."""
     import jax.numpy as jnp
 
-    peak = peak_bf16_flops(kind)
-    if peak is None:
-        return None
-    if jnp.dtype(dtype) == jnp.int8 and "v4" not in (kind or "").lower():
-        return peak * 2.0
-    return peak
-
-
-def local_device_kind() -> str:
-    import jax
-
-    return getattr(jax.local_devices()[0], "device_kind", "")
+    prof = resolve_profile(kind)
+    if jnp.dtype(dtype) == jnp.int8:
+        return prof.peak_int8_tops * 1e12 if prof.peak_int8_tops else None
+    return peak_bf16_flops(kind)

@@ -2,8 +2,8 @@
 
 The reference scores one (query, row) pair at a time with a scalar loop
 (reference: src/metrics.rs:143-165 ``cosine_distance`` called per row in
-src/mpi_helpers/metrics.rs:36-44). On TPU the same math is one MXU matmul
-over normalized operands; these helpers define that mapping and its edge-case
+src/mpi_helpers/metrics.rs:36-44). Here the same math is one matmul over
+normalized operands; these helpers define that mapping and its edge-case
 semantics:
 
 * zero-magnitude rows normalize to the zero vector, so their similarity is 0
@@ -29,7 +29,7 @@ def similarity_matrix(
     queries_norm: jax.Array, store_norm: jax.Array
 ) -> jax.Array:
     """[Q, N] cosine similarities of pre-normalized operands, accumulated in
-    float32 on the MXU regardless of operand dtype."""
+    float32 regardless of operand dtype."""
     return jnp.dot(
         queries_norm, store_norm.T, preferred_element_type=jnp.float32,
         precision=jax.lax.Precision.HIGHEST,

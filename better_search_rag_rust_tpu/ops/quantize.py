@@ -1,8 +1,8 @@
 """Symmetric int8 quantization for the scored store.
 
 The int8 store dtype trades a one-time, bounded quantization of the row
-DIRECTIONS for a ~2x scoring-rate ceiling (v5e MXU: 394 TOPS int8 vs 197
-TFLOPS bf16) and half of bf16's HBM footprint/traffic. The contract:
+DIRECTIONS for the int8 tensor-core rate (twice bf16's on the data sheet)
+and half of bf16's memory footprint/traffic. The contract:
 
 * store rows are L2-normalized in f32 (the reference's zero-magnitude
   guard included, reference: src/metrics.rs:157-159) and then mapped onto
@@ -12,11 +12,11 @@ TFLOPS bf16) and half of bf16's HBM footprint/traffic. The contract:
 * the score is ``f32(int32_dot(q_i8, s_i8)) * INT8_INV_SCALE2`` — the
   integer dot is EXACT (768-dim worst case |dot| <= 768 * 127^2 ~ 1.2e7,
   far below both int32 overflow and f32's 2^24 integer-exact range), so
-  every accumulation order, every backend (Mosaic, XLA TPU, XLA CPU,
-  NumPy) and every kernel produce bitwise-identical scores. The exactness
-  story is STRONGER than bf16's, which rests on a chip-verified
-  Mosaic-vs-XLA arithmetic identity (docs/DESIGN.md): here it is a
-  property of integer arithmetic itself, valid even in interpret mode.
+  every accumulation order, every backend (XLA GPU, XLA CPU, NumPy) and
+  every kernel produce bitwise-identical scores. The exactness story is
+  STRONGER than bf16's, which rests on every path sharing one scoring
+  arithmetic (``ops.topk.xla_sims``): here it is a property of integer
+  arithmetic itself.
 
 Like the bf16 store, the serial oracle is defined over the SAME
 dtype-rounded rows: ``top_k_overlap(oracle, engine) == 1.0`` holds exactly,

@@ -10,7 +10,7 @@ This replaces the reference's brute-force scan + hand-rolled distributed merge
   Replaces sort-whole-candidate-list-then-truncate
   (src/mpi_helpers/metrics.rs:141-171) with an O(k) carry.
 * ``local_topk``           — one device's scan over its row block: a
-  ``lax.scan`` whose body is an MXU matmul + top-k merge. Replaces the
+  ``lax.scan`` whose body is a matmul + top-k merge. Replaces the
   per-row ``cosine_distance`` loop (src/mpi_helpers/metrics.rs:36-44).
   Two merge strategies:
 
@@ -40,16 +40,16 @@ import numpy as np
 #: Sentinel similarity for padded rows; any valid cosine similarity is >= -1.
 #: (int8 stores score the scaled integer dot, also within [-1-eps, 1+eps].)
 PAD_SIM = -3.0
-#: Row-block width for the hierarchical merge (TPU lane width).
+#: Row-block width for the hierarchical merge.
 BLOCK = 128
 
 
 def xla_sims(queries_cast: jax.Array, rows: jax.Array) -> jax.Array:
     """``[Q, RC] f32`` scores of store-dtype queries against store rows —
-    the XLA twin of :func:`.topk_pallas._sims_dot` (the oracle's
-    arithmetic). f32/bf16: HIGHEST-precision matmul with f32 accumulation.
-    int8: exact int32 dot, value-converted and scaled by the shared
-    constant — bitwise equal to every other scoring path by integer
+    the one scoring arithmetic shared by every kernel and the oracle.
+    f32/bf16: HIGHEST-precision matmul with f32 accumulation (f32 stores
+    never drop to TF32). int8: exact int32 dot, value-converted and scaled
+    by the shared constant — bitwise equal across paths by integer
     exactness."""
     if jnp.dtype(rows.dtype) == jnp.int8:
         from .quantize import INT8_INV_SCALE2
@@ -70,7 +70,8 @@ def xla_sims(queries_cast: jax.Array, rows: jax.Array) -> jax.Array:
 
 
 def serial_topk(
-    store: np.ndarray, queries: np.ndarray, k: int, sims: np.ndarray | None = None
+    store: Optional[np.ndarray], queries: np.ndarray, k: int,
+    sims: np.ndarray | None = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Exact serial scan: ``(indices [Q, k'], distances [Q, k'])`` with
     ``k' = min(k, N)``, distances ascending, ties by lowest index.
@@ -84,13 +85,11 @@ def serial_topk(
     oracle *selects* independently over the same scores the engine computes —
     the same relationship the reference's parallel-vs-sequential check had
     (both paths shared one scalar cosine kernel, src/metrics.rs:143).
+    ``store`` is then unused and may be None.
     """
-    store = np.asarray(store, dtype=np.float32)
     queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
-    n = store.shape[0]
-    k_eff = min(k, n)
-
     if sims is None:
+        store = np.asarray(store, dtype=np.float32)
 
         def _norm(x):
             norms = np.sqrt(np.sum(x * x, axis=-1, keepdims=True))
@@ -98,16 +97,29 @@ def serial_topk(
 
         sims = _norm(queries) @ _norm(store).T
     sims = np.asarray(sims, dtype=np.float32)
+    n = sims.shape[1]
+    k_eff = min(k, n)
     # Selection orders by the RAW f32 similarity (negation is exact), the
     # engine's comparator — NOT by the reported distance: ``1 - sim``
     # loses up to one ulp near sim ~ 0, collapsing distinct sims into a
-    # spurious exact tie the engine would still order by score (observed
-    # on chip: two sims 3e-8 apart at 0.109 share one f32 distance).
+    # spurious exact tie the engine would still order by score.
     # Distances are derived afterward for the reference's metric API
     # (1 - clamp(cos), src/metrics.rs:143-165).
-    order = np.argsort(-sims, axis=1, kind="stable")[:, :k_eff]
-    dist = 1.0 - np.clip(sims, -1.0, 1.0)
-    return order.astype(np.int64), np.take_along_axis(dist, order, axis=1)
+    neg = -sims
+    if k_eff < n:
+        # Same order as a full stable argsort's first k: every row at or
+        # above the k-th score (ties included) is a candidate, candidates
+        # stay in ascending index order, and a stable sort by score keeps
+        # the lowest index first among equal scores.
+        kth = np.partition(neg, k_eff - 1, axis=1)[:, k_eff - 1]
+        order = np.empty((neg.shape[0], k_eff), dtype=np.int64)
+        for r in range(neg.shape[0]):
+            cand = np.flatnonzero(neg[r] <= kth[r])
+            order[r] = cand[np.argsort(neg[r, cand], kind="stable")[:k_eff]]
+    else:
+        order = np.argsort(neg, axis=1, kind="stable")
+    dist = 1.0 - np.clip(np.take_along_axis(sims, order, axis=1), -1.0, 1.0)
+    return order.astype(np.int64), dist
 
 
 # ---------------------------------------------------------------------------
@@ -185,15 +197,12 @@ def _fast_topk(x: jax.Array, kk: int) -> Tuple[jax.Array, jax.Array]:
     PartialReduce fast path with the :func:`_select_blocks` certificate
     (count of elements >= the kk-th candidate value over the FULL row must
     match the count among candidates; any approx miss falls back to exact
-    ``lax.top_k`` via ``lax.cond``). Measured ~3x faster than ``top_k`` at
-    [512, 7936]; the win shrinks with N, so narrow/huge-k cases go
-    straight to ``top_k``."""
+    ``lax.top_k`` via ``lax.cond``). Narrow rows and huge k go straight to
+    ``top_k``, where the candidate pass cannot shrink the work."""
     n = x.shape[1]
     # kp slack beyond kk only buys LESS frequent certificate fallback on
     # tie-saturated rows (never exactness — the fallback is exact top_k);
-    # the approx reduce + repair sort cost scales with kp, and shrinking
-    # 208 -> 128 at the pool-refine level measured -0.4 ms per [512, 1M]
-    # tile (scripts/proto_sel11.py), so keep kp tight.
+    # the approx reduce + repair sort cost scales with kp, so keep it tight.
     kp = min(n, max(kk + 24, 128))
     if kp >= n // 2 or kk > 1024:
         return jax.lax.top_k(x, kk)
@@ -218,8 +227,7 @@ def _select_blocks(block_max: jax.Array, kb: int) -> jax.Array:
     """Top ``kb`` blocks of ``block_max [T, NB]`` by (max desc, block idx
     asc) — the oracle's tie discipline.
 
-    Fast path: ``lax.approx_max_k(recall_target=1.0)`` (the TPU PartialReduce
-    lowering, measured ~3x faster than ``lax.top_k`` on [512, 7936]) with a
+    Fast path: ``lax.approx_max_k(recall_target=1.0)`` with a
     runtime certificate counted against the FULL row: with ``w`` the
     ``kb``-th candidate value, if the number of elements ``>= w`` in the
     whole row equals the number among the returned candidates, then every
@@ -243,11 +251,10 @@ def _dense_chunk_topk(
     gid_base,
     valid_rows,
     block: int,
-    use_pallas: bool,
 ) -> Tuple[jax.Array, jax.Array]:
     """Exact top-k of ``q_block [T, D]`` against one resident row chunk
-    ``[RC, D]``: one matmul (fused Pallas scoring when enabled), per-block
-    maxima, top-kb block selection, candidate gather, one final ``top_k``.
+    ``[RC, D]``: one matmul, per-block maxima, top-kb block selection,
+    candidate gather, one final ``top_k``.
 
     ``gid_base``: global row id of chunk row 0 (may be traced).
     ``valid_rows``: valid row count within the chunk (may be traced); rows
@@ -266,23 +273,11 @@ def _dense_chunk_topk(
     )
     limit = jnp.asarray(valid_rows, dtype=jnp.int32)
 
-    if use_pallas:
-        # Fused MXU matmul + padding mask + VMEM block-max (the
-        # BASELINE.json north-star kernel, see .topk_pallas).
-        from .topk_pallas import default_interpret, matmul_blockmax
-
-        sims, bm_t = matmul_blockmax(
-            q_block, shard_chunk, limit, interpret=default_interpret(),
-            block=block,
-        )
-        block_max = bm_t.T  # kernel emits [blocks, T] (lane alignment)
-        sims3 = sims.reshape(t, nb, block)
-    else:
-        local_ids = jnp.arange(rc, dtype=jnp.int32)
-        sims = xla_sims(q_block, shard_chunk)  # [T, RC] f32
-        sims = jnp.where((local_ids < limit)[None, :], sims, PAD_SIM)
-        sims3 = sims.reshape(t, nb, block)
-        block_max = jnp.max(sims3, axis=2)  # [T, NB]
+    local_ids = jnp.arange(rc, dtype=jnp.int32)
+    sims = xla_sims(q_block, shard_chunk)  # [T, RC] f32
+    sims = jnp.where((local_ids < limit)[None, :], sims, PAD_SIM)
+    sims3 = sims.reshape(t, nb, block)
+    block_max = jnp.max(sims3, axis=2)  # [T, NB]
 
     block_ids = _select_blocks(block_max, kb)
     block_ids = jnp.sort(block_ids, axis=1)  # ascending: oracle tie order
@@ -320,7 +315,6 @@ def global_topk(
     base: jax.Array,
     num_rows: int,
     q_tile: int = 256,
-    use_pallas: bool = False,
     block: int = BLOCK,
     macro_rows: int = 4 * 1024 * 1024,
 ) -> Tuple[jax.Array, jax.Array]:
@@ -337,59 +331,23 @@ def global_topk(
 
     ``q_tile`` bounds the f32 similarity buffer (``q_tile * macro * 4``
     bytes); query tiles run under ``lax.map`` so peak memory stays flat
-    while the MXU matmul stays large.
+    while the matmul stays large.
 
     ``macro_rows`` caps the rows scored per matmul: shards larger than that
     are processed as a ``lax.scan`` over macro chunks with an O(k) running
     merge, so the f32 sims buffer stays bounded WITHOUT shrinking the query
-    tile. (The round-1 design shrank ``q_tile`` instead — on a 10M-row
-    store that collapsed it to ~48 and re-streamed the 5 GB store ~21x per
-    query batch, the root cause of the 6% MFU measured there.)
+    tile (a narrower query tile would re-stream the whole shard once per
+    tile).
     """
-    if use_pallas and block % 128:
-        # Mosaic cannot lane-tile a sub-128 block-max reshape (measured:
-        # block=64 fails to compile); the XLA path handles any width.
-        use_pallas = False
-    if use_pallas:
-        from .topk_pallas import pallas_scoring_exact_for
-
-        if not pallas_scoring_exact_for(shard.dtype):
-            # Mosaic's f32 matmul is NOT the oracle's arithmetic on a real
-            # chip (default = one bf16 pass; HIGHEST still differs by
-            # ~2e-5) — f32 shards take the XLA kernels. bf16 is bitwise.
-            use_pallas = False
     rows_valid, d = shard.shape
     q = queries_cast.shape[0]
     q_tile = max(1, min(q_tile, q))
 
-    # The Pallas kernel tiles rows in multiples of 8*block (the transposed
-    # block-max output needs an 8-aligned sublane dim).
-    def _layout(pallas: bool):
-        a = 8 * block if pallas else block
-        m = min(max(a, (macro_rows // a) * a), rows_valid + (-rows_valid) % a)
-        n_full = rows_valid // m
-        tail = rows_valid - n_full * m
-        return a, m, n_full, tail
-
-    align, macro, n_full, tail = _layout(use_pallas)
-    if use_pallas:
-        # Degrade to the XLA path instead of raising when no row tile fits
-        # the Pallas VMEM budget (huge dim x wide query tile); the engine
-        # sizes q_tile to avoid this, but direct callers may not.
-        from .topk_pallas import _pick_row_tile
-
-        try:
-            _pick_row_tile(
-                macro, d, q_tile, block, jnp.dtype(shard.dtype).itemsize
-            )
-            if tail:
-                _pick_row_tile(
-                    tail + (-tail) % align, d, q_tile, block,
-                    jnp.dtype(shard.dtype).itemsize,
-                )
-        except ValueError:
-            use_pallas = False
-            align, macro, n_full, tail = _layout(False)
+    align = block
+    macro = min(max(align, (macro_rows // align) * align),
+                rows_valid + (-rows_valid) % align)
+    n_full = rows_valid // macro
+    tail = rows_valid - n_full * macro
 
     base_i32 = base.astype(jnp.int32) if hasattr(base, "astype") else jnp.int32(base)
     # Rows past the shard's valid count OR past the global row count are
@@ -399,8 +357,8 @@ def global_topk(
     # Memory discipline: the scan part is a PREFIX view of the shard
     # (reshape of a contiguous slice — no copy); only the sub-macro tail is
     # padded, which copies at most ~macro rows instead of repadding the
-    # whole shard (a full jnp.pad inside jit materialized a second copy of
-    # a 5 GB store and OOM'd the 10M config).
+    # whole shard (a full jnp.pad inside jit materializes a second copy of
+    # the store).
     tail_rows = tail + ((-tail) % align) if tail else 0
     tail_part = None
     if tail_rows:
@@ -422,24 +380,21 @@ def global_topk(
     def tile_fn(q_block):
         if n_full == 1 and not tail_rows:
             return _dense_chunk_topk(
-                shard, q_block, k, base_i32, total_valid, block, use_pallas
+                shard, q_block, k, base_i32, total_valid, block
             )
         if n_full == 0:
             return _dense_chunk_topk(
-                tail_part, q_block, k, base_i32, total_valid, block,
-                use_pallas,
+                tail_part, q_block, k, base_i32, total_valid, block
             )
         # Chunk loop unrolled in Python, NOT lax.scan: chunk counts are tiny
-        # (the planner keeps them <= ~4) and static slices let XLA alias the
-        # shard buffer — a scan dynamic-slices a multi-GB chunk copy per
-        # iteration, which measured as tens of ms of pure copy on the 10M
-        # config.
+        # and static slices let XLA alias the shard buffer — a scan
+        # dynamic-slices a multi-GB chunk copy per iteration.
         vals, ids = None, None
         for c in range(n_full):
             off = c * macro
             v, i = _dense_chunk_topk(
                 shard[off: off + macro], q_block, k, base_i32 + off,
-                jnp.clip(total_valid - off, 0, macro), block, use_pallas,
+                jnp.clip(total_valid - off, 0, macro), block,
             )
             # Carry first: earlier chunks hold lower gids, so top_k's
             # first-occurrence rule keeps the oracle's tie order.
@@ -448,7 +403,7 @@ def global_topk(
             off = n_full * macro
             v, i = _dense_chunk_topk(
                 tail_part, q_block, k, base_i32 + off,
-                jnp.clip(total_valid - off, 0, tail_rows), block, use_pallas,
+                jnp.clip(total_valid - off, 0, tail_rows), block,
             )
             vals, ids = merge_topk(vals, ids, v, i, k)
         return vals, ids
@@ -457,683 +412,6 @@ def global_topk(
     vals = vals.reshape(n_tiles * q_tile, k)[:q]
     ids = ids.reshape(n_tiles * q_tile, k)[:q]
     return vals, ids
-
-
-# ---------------------------------------------------------------------------
-# Sims-free rescore selection (huge low-dim shards)
-# ---------------------------------------------------------------------------
-
-
-def _round_up(x: int, m: int) -> int:
-    return x + (-x) % m
-
-
-def rescore_topk(
-    shard: jax.Array,
-    queries_cast: jax.Array,
-    k: int,
-    base: jax.Array,
-    num_rows: int,
-    q_tile: int = 512,
-    use_pallas: bool = False,
-    block: int = BLOCK,
-    sub_block: int = 0,
-    cpg: int = 0,
-    argmax_fast: bool = False,
-    danger_units: int = 4,
-    danger_cpg: int = 0,
-    sup_w: int = 8,
-) -> Tuple[jax.Array, jax.Array]:
-    """Exact top-k WITHOUT materializing the similarity matrix.
-
-    1. One streaming pass computes TWO levels of block maxima only —
-       per-``sub_block``-row and per-``block``-row — and discards the sims
-       tile while it is still in registers
-       (:func:`..topk_pallas.matmul_blockmax2_only`, transposed-operand
-       form, ~90% MXU at 768-d on a v5e). Nothing store-sized is written.
-    2. Exact two-level GROUP selection: top ``kg = min(k, n_groups)``
-       groups by (max desc, idx asc) — a group is a block for small
-       stores, an 8-block superblock for large ones (chip-measured: one
-       selection level + one gather fewer than block-select-then-refine,
-       2.08 vs 3.01 ms per [512, 1M x 768] tile) — then the selected
-       groups' unit maxima, gathered straight from ``bms``, refine to
-       ``ks ~ k`` ``sub_block``-row units. The (max desc, idx asc)
-       containment proof applies unchanged at each level: if a true
-       top-k row's unit were not selected, the >= k selected units each
-       contain an element preceding it in (score desc, index asc) order.
-    3. The selected units' STORE ROWS are fetched and rescored by ONE
-       fused Pallas kernel (:func:`..topk_pallas.gather_rescore`): the
-       pipeline DMAs each candidate unit straight from HBM using
-       scalar-prefetched ids — no XLA row-take (a full source rescan per
-       call), no intermediate HBM buffer, no re-read. f32 MXU accumulation
-       depends only on the K-dimension order, so the rescored scores are
-       bitwise equal to the streaming matmul's (chip-verified) and the
-       final ``top_k`` is oracle-exact, ties by lowest row id.
-    4. When the candidate row is wide (``ks * sub_block >= 4k``) it is
-       reduced per-16 and only the top-k 16-ranges are sorted — the same
-       containment proof one level down.
-
-    Geometry (picked by the engine): high-dim stores use
-    ``(sub_block=64, block=128, cpg=4)`` under the argmax fast path (the
-    [R/sub, T] refine-source scans dominate, so wide units win) and
-    ``(sub_block=16, block=128, cpg=8)`` for the full-gather variant —
-    extraction traffic drops 8x vs 128-row units (1M x 768: 19.7 ->
-    2.8 MB/query); low-dim huge stores use ``(sub_block=128, block=1024,
-    cpg=4)`` — 64 KB DMA units. ``cpg`` units are fetched per (query,
-    grid step); ``cpg * sub_block`` must be a multiple of 128 (the
-    kernel's output lane width).
-
-    **Argmax fast path** (``argmax_fast``, round 4). The bm pass also
-    emits each unit's argmax row and second max — free, the VPU
-    reductions hide under the MXU dot (chip-measured). Then:
-
-    * A-candidates: the ks selected units' ``(max, base + uid*sub +
-      argmax)`` pairs — exact scores and row ids with NO store-row
-      traffic at all.
-    * By the containment proof, every true top-k row lives in a selected
-      unit. A top-k row that is NOT its unit's argmax forces that unit's
-      ``max2 >= w`` (with ``w`` the k-th best selected unit max: the top-k
-      selected argmaxes are k distinct rows scoring ``>= w``, so the true
-      k-th score is ``>= w``). The kernel emits each unit's (max2, argmax)
-      packed into ONE conservative int32 sort key
-      (:func:`..topk_pallas.pack_m2_argmax_key` — key >= the exact m2
-      key, so the test can only overcount danger, never miss). Danger
-      units are counted on the small ``[T, ks]`` key array; when every
-      query has at most
-      ``danger_units`` of them, ONLY those units' rows are DMA-gathered
-      (:func:`..topk_pallas.gather_rescore`, top-``gd`` by max2 — by
-      value, so a count within capacity implies full coverage), their
-      argmax rows masked out (already A-candidates), and the exact top-k
-      follows from a two-key ``(value desc, gid asc)`` sort of
-      A + danger — the oracle's tie discipline enforced directly.
-    * Any query over capacity falls back to the full ks-unit gather via
-      ``lax.cond`` (identical result, chip-verified bitwise; clustered
-      stores with many same-unit top-k pairs simply keep the round-3
-      path). Expected danger count on uncorrelated data is
-      ``~k^2 * sub / (2 * rows)`` per query (~0.07 for both headline
-      configs), so the fast path is the steady state.
-    * The final sort MIXES bm-pass scores (A-candidates) with
-      gather-rescored scores (danger rows) — exact only because the two
-      Mosaic bf16 dots are bitwise identical on real TPUs
-      (chip-verified). Interpret-mode f32 dots of different orientation
-      round differently, so exact cross-unit input duplicates can
-      misorder there; hence the default is OFF and the engine enables it
-      only on the real-TPU bf16 path. (The round-3 gather path never
-      mixes: all final values come from one gather_rescore call.)
-
-    Padded store rows are ZERO vectors whose recomputed score (0.0) could
-    beat valid negative scores, so gathered rows past the valid count are
-    masked to PAD_SIM. A padded unit's max is PAD_SIM, below every valid
-    cosine (>= -1), so its A-candidate is masked to INT32_MAX. The
-    reference's scan + sort-merge equivalent:
-    src/mpi_helpers/metrics.rs:16-53.
-    """
-    if sup_w < 1:
-        raise ValueError(f"sup_w must be >= 1, got {sup_w}")
-    if use_pallas:
-        from .topk_pallas import pallas_scoring_exact_for
-
-        if not pallas_scoring_exact_for(shard.dtype):
-            use_pallas = False  # f32 on real TPU: Mosaic != oracle math
-    rows_valid, d = shard.shape
-    q = queries_cast.shape[0]
-    # gather_rescore processes 8 queries per grid step: 8-aligned tiles.
-    q_tile = max(8, (min(q_tile, q) // 8) * 8) if use_pallas else max(
-        1, min(q_tile, q))
-    itemsize = jnp.dtype(shard.dtype).itemsize
-    if use_pallas:
-        sub = sub_block or (16 if d * itemsize >= 1024 else 128)
-        if block <= sub:
-            block = 8 * sub
-        if not cpg:
-            cpg = max(1, 128 // sub)
-        from .topk_pallas import sublane_tile_for
-
-        if (cpg * sub) % 128 or block % sub or sub % sublane_tile_for(
-                shard.dtype):
-            use_pallas = False  # illegal geometry: degrade to XLA
-
-    # Pad rows so the bm pass tiles evenly (small copy; masked anyway).
-    if use_pallas:
-        rows_pad = _round_up(rows_valid, max(1024, block))
-        from .topk_pallas import pick_bm2_row_tile
-
-        # Tiny refine pools (kb * spb < cpg — possible at spb < 8, e.g.
-        # the sub=32 geometry on a small store) admit no legal
-        # gather_rescore shape: ks would exceed the pool. Degrade to the
-        # XLA branch (exact; tiny stores don't need the fast path).
-        nb_s = rows_pad // block
-        pool_s = min(k, nb_s) * (block // sub)
-        if max(_round_up(k, cpg), cpg) > pool_s:
-            use_pallas = False
-    if use_pallas:
-        try:
-            pick_bm2_row_tile(rows_pad, d, q_tile, sub, block, itemsize,
-                              extra_outs=1 if argmax_fast else 0)
-        except ValueError:
-            if argmax_fast:
-                argmax_fast = False  # extra outputs blew VMEM: plain pass
-                try:
-                    pick_bm2_row_tile(rows_pad, d, q_tile, sub, block,
-                                      itemsize)
-                except ValueError:
-                    use_pallas = False
-            else:
-                use_pallas = False
-    if not use_pallas:
-        sub, cpg = 0, 0
-        block = BLOCK
-        rows_pad = _round_up(rows_valid, block)
-    if rows_pad != rows_valid:
-        shard = jnp.pad(shard, ((0, rows_pad - rows_valid), (0, 0)))
-
-    nb = rows_pad // block
-    kb = min(k, nb)
-    base_i32 = base.astype(jnp.int32) if hasattr(base, "astype") else jnp.int32(base)
-    total_valid = jnp.minimum(jnp.int32(rows_valid), num_rows - base_i32)
-    int_max = jnp.iinfo(jnp.int32).max
-
-    pad_q = (-q) % q_tile
-    padded_queries = (
-        jnp.concatenate(
-            [queries_cast, jnp.zeros((pad_q, d), shard.dtype)]
-        )
-        if pad_q
-        else queries_cast
-    )
-    n_tiles = padded_queries.shape[0] // q_tile
-    tiles = padded_queries.reshape(n_tiles, q_tile, d)
-
-    def select_blocks_hier(bm, t, kb_sel):
-        """Top ``kb_sel`` of ``bm [t, nb]`` by (max desc, idx asc),
-        hierarchically via 8-superblocks when nb is huge."""
-        sup_w = 8
-        if nb >= 4 * sup_w * kb_sel and nb % sup_w == 0:
-            nsup = nb // sup_w
-            b8 = jnp.max(bm.reshape(t, nsup, sup_w), axis=2)
-            ns = min(kb_sel, nsup)
-            _, sup = _fast_topk(b8, ns)
-            sup = jnp.sort(sup, axis=1)  # ascending: oracle tie order
-            cand_bm = jnp.take_along_axis(
-                bm.reshape(t, nsup, sup_w), sup[:, :, None], axis=1
-            ).reshape(t, ns * sup_w)
-            cand_bids = (
-                sup[:, :, None] * sup_w
-                + jnp.arange(sup_w, dtype=jnp.int32)[None, None, :]
-            ).reshape(t, ns * sup_w)
-            _, pos = _fast_topk(cand_bm, kb_sel)
-            bids = jnp.take_along_axis(cand_bids, pos, axis=1)
-        else:
-            bids = _select_blocks(bm, kb_sel)
-        return jnp.sort(bids, axis=1)
-
-    def finalize(cand_sims, cand_ids, t):
-        """Final exact top-k over the candidate row; wide rows are first
-        reduced per-16 and only the top-k ranges sorted (containment proof
-        as in :func:`_merge_blockmax`; ranges are ordered by ascending
-        global row so first-occurrence keeps the oracle tie order)."""
-        c = cand_sims.shape[1]
-        if c >= 4 * k and c % 16 == 0:
-            nr = c // 16
-            s3 = cand_sims.reshape(t, nr, 16)
-            rm = jnp.max(s3, axis=2)
-            kr = min(k, nr)
-            _, rpos = _fast_topk(rm, kr)
-            rpos = jnp.sort(rpos, axis=1)
-            cand_sims = jnp.take_along_axis(
-                s3, rpos[:, :, None], axis=1
-            ).reshape(t, kr * 16)
-            cand_ids = jnp.take_along_axis(
-                cand_ids.reshape(t, nr, 16), rpos[:, :, None], axis=1
-            ).reshape(t, kr * 16)
-        if cand_sims.shape[1] < k:
-            pad = k - cand_sims.shape[1]
-            cand_sims = jnp.pad(cand_sims, ((0, 0), (0, pad)),
-                                constant_values=PAD_SIM)
-            cand_ids = jnp.pad(cand_ids, ((0, 0), (0, pad)),
-                               constant_values=int_max)
-        top_vals, pos = _fast_topk(cand_sims, k)
-        return top_vals, jnp.take_along_axis(cand_ids, pos, axis=1)
-
-    def tile_fn(q_block):
-        t = q_block.shape[0]
-        from .topk_pallas import default_interpret
-
-        if use_pallas:
-            from .topk_pallas import (
-                bm2_emit_width, gather_rescore, matmul_blockmax2_only,
-                pick_bm2_row_tile,
-            )
-
-            spb = block // sub            # sub-units per block
-            # Group width for unit selection. Large stores select
-            # SUPERBLOCK groups (8 blocks) and gather their unit maxima
-            # straight from bms — one selection level and one gather
-            # fewer than block-level select + refine (chip-measured
-            # 2.08 vs 3.01 ms per [512, 1M x 768] tile; the wider pool
-            # costs less than the extra approx_max_k + bm gather).
-            # Small stores keep block groups: their bm row is short
-            # enough to select exactly without the hierarchy.
-            if nb >= 4 * sup_w * kb and nb % sup_w == 0:
-                ng, gw = nb // sup_w, sup_w * spb
-            else:
-                ng, gw = nb, spb
-            kg = min(k, ng)
-            pool = kg * gw
-            ks = min(_round_up(k, cpg), pool - pool % cpg)
-            ks = max(ks, cpg)
-            # argmax fast path feasibility: the k-th selected unit max
-            # must exist (ks >= k) and the danger capacity must be a
-            # legal gather_rescore shape within the selected set.
-            # Danger-gather units per grid step. Chip-measured
-            # (scripts/proto_pad_ab2.py): the gather cost is dominated by
-            # per-capacity-SLOT work, and packing more units into one
-            # step is WORSE at high dim (cpg=8 blows the double-buffer
-            # VMEM budget: 1 step of 8 = 6.17 ms/tile vs 4 steps of 2 =
-            # 5.83 at 1M x 768) — so take the legality floor there and
-            # the measured optimum 4 at the low-dim sub=128 geometry
-            # (``danger_cpg`` overrides for tuning sweeps).
-            cpg_d = danger_cpg or (max(1, 128 // sub) if sub < 128 else 4)
-            if (cpg_d * sub) % 128:
-                cpg_d = max(1, 128 // sub)
-            gd = max(cpg_d, _round_up(min(danger_units, ks), cpg_d))
-            # sub > 128 cannot pack its sub-local argmax into the key's
-            # 7 bits (pack_m2_argmax_key); take the full-gather path.
-            af = argmax_fast and ks >= k and gd <= ks and sub <= 128
-            rt = pick_bm2_row_tile(rows_pad, d, t, sub, block, itemsize,
-                                   extra_outs=1 if af else 0)
-            # Fused coarse maxima at the widest Mosaic-legal emit width
-            # (= block when legal; e.g. 256 at the 10M block=1024
-            # geometry where rt/block is not 8-aligned) — the group
-            # maxima then reduce from this small array instead of the
-            # full [R/sub, T] sub maxima.
-            ew = bm2_emit_width(rows_pad, rt, sub, block)
-            outs = matmul_blockmax2_only(
-                q_block, shard, total_valid,
-                interpret=default_interpret(), sub=sub, block=block,
-                emit_block=bool(ew), emit_argmax=af,
-                emit_width=ew or block,
-            )
-            if not (ew or af):
-                outs = (outs,)
-            bms_t = outs[0]
-            key_t = outs[1] if af else None
-            bmi_t = outs[-1] if ew else None
-            bms3 = bms_t.T.reshape(t, ng, gw)
-            # Group selection: top-kg groups by (max desc, idx asc), then
-            # the selected groups' unit maxima refine to the top-ks units.
-            # The containment proof applies unchanged at each level: a
-            # true top-k row's group holds an element >= any non-selected
-            # group's max (ties to the lower index), so kg >= k selected
-            # groups precede every non-selected row in (score desc, idx
-            # asc) order; likewise ks >= k units within the pool. Max is
-            # order-independent, so group maxima reduced from any coarse
-            # level stay exact attained maxima of the oracle's scores.
-            if bmi_t is not None:
-                upg = (gw * sub) // ew   # emitted units per group
-                gmax = jnp.max(bmi_t.T.reshape(t, ng, upg), axis=2)
-            else:
-                gmax = jnp.max(bms3, axis=2)
-            _, gids = _fast_topk(gmax, kg)
-            gids = jnp.sort(gids, axis=1)  # ascending: oracle tie order
-            # promise_in_bounds: gids/pos are top_k positions — always in
-            # bounds; skipping the clamp runs the [T, R/sub] source scans
-            # ~20% faster (chip-measured, 0.54 -> 0.42 ms per 65 MB).
-            cand_bm = jnp.take_along_axis(
-                bms3, gids[:, :, None], axis=1, mode="promise_in_bounds"
-            ).reshape(t, pool)
-            vals, pos = _fast_topk(cand_bm, ks)
-            # uids from pos ARITHMETICALLY (pool position j maps to unit
-            # gids[j // gw] * gw + j % gw): a tiny [T, kg] gather + VPU
-            # instead of a [T, pool] take — the staged pos-take measured
-            # 0.39 ms/tile at 1M x 768 (scripts/proto_refine.py).
-            g_of = jnp.take_along_axis(
-                gids, pos // gw, axis=1, mode="promise_in_bounds")
-            uids = g_of * gw + pos % gw
-
-            def slow_gather(_):
-                """Round-3 path: DMA-gather ALL ks selected units' rows."""
-                uids_s = jnp.sort(uids, axis=1)  # ascending: tie order
-                cand_sims = gather_rescore(
-                    q_block, shard, uids_s, unit=sub, cpg=cpg,
-                    interpret=default_interpret(),
-                )                              # [T, ks*sub]
-                local_rows = (
-                    uids_s[:, :, None] * sub
-                    + jnp.arange(sub, dtype=jnp.int32)[None, None, :]
-                ).reshape(t, ks * sub)
-                cand_sims = jnp.where(local_rows < total_valid, cand_sims,
-                                      PAD_SIM)
-                cand_ids = jnp.where(local_rows < total_valid,
-                                     base_i32 + local_rows, int_max)
-                return finalize(cand_sims, cand_ids, t)
-
-            if not af:
-                return slow_gather(None)
-
-            # ---- argmax fast path (see docstring proof) -----------------
-            # (m2, arg) arrive PACKED in one int32 key per unit
-            # (..topk_pallas.pack_m2_argmax_key): one refine-source
-            # transpose + rescan instead of two. The key is conservative
-            # (key >= exact m2 key), so every comparison below errs only
-            # toward MORE danger units — never a miss.
-            from .topk_pallas import m2_sort_key
-
-            # Keys gathered DIRECTLY at the final units: one [T, R/sub]
-            # source scan replacing the pool-group gather AND the pos
-            # take (scan cost is source-bytes-bound either way, so the
-            # pool hop added only cost; scripts/proto_sel11.py).
-            key_sel = jnp.take_along_axis(
-                key_t.T, uids, axis=1, mode="promise_in_bounds"
-            )                                                     # [T, ks]
-            arg_sel = key_sel & 0x7F
-            w = jax.lax.dynamic_slice_in_dim(vals, k - 1, 1, axis=1)
-            w_key = m2_sort_key(w)
-            a_gids = jnp.where(
-                vals > PAD_SIM, base_i32 + uids * sub + arg_sel, int_max
-            )
-            danger_count = jnp.sum(
-                (key_sel >= w_key).astype(jnp.int32), axis=1)
-            cert = jnp.all(danger_count <= gd)
-            # top-gd units BY packed key: a count within capacity implies
-            # every unit with key >= w_key is covered (any excluded unit
-            # would need gd units above it, contradicting the count).
-            _, dpos = jax.lax.top_k(key_sel, gd)
-            d_uids = jnp.take_along_axis(uids, dpos, axis=1)      # [T, gd]
-            d_args = jnp.take_along_axis(arg_sel, dpos, axis=1)
-            dperm = jnp.argsort(d_uids, axis=1)
-            d_uids_s = jnp.take_along_axis(d_uids, dperm, axis=1)
-            d_args_s = jnp.take_along_axis(d_args, dperm, axis=1)
-
-            def fast(_):
-                d_sims = gather_rescore(
-                    q_block, shard, d_uids_s, unit=sub, cpg=cpg_d,
-                    interpret=default_interpret(),
-                )                              # [T, gd*sub]
-                d_rows = (
-                    d_uids_s[:, :, None] * sub
-                    + jnp.arange(sub, dtype=jnp.int32)[None, None, :]
-                ).reshape(t, gd * sub)
-                is_arg = (
-                    jnp.arange(sub, dtype=jnp.int32)[None, None, :]
-                    == d_args_s[:, :, None]
-                ).reshape(t, gd * sub)
-                ok = (d_rows < total_valid) & ~is_arg
-                d_sims = jnp.where(ok, d_sims, PAD_SIM)
-                d_ids = jnp.where(ok, base_i32 + d_rows, int_max)
-                # (A danger pre-reduce to top-k before this sort was
-                # measured a NON-win even at the 10M gd*sub=1024 width:
-                # the two-key sort is sub-0.5 ms there and the extra
-                # approx_max_k only adds work — scripts/proto_dsort.py.)
-                c_vals = jnp.concatenate([vals, d_sims], axis=1)
-                c_ids = jnp.concatenate([a_gids, d_ids], axis=1)
-                # exact oracle order: two-key (value desc, gid asc) sort;
-                # `+ 0.0` folds -0.0 into +0.0 before negation so signed
-                # zeros cannot split a tie the oracle would merge.
-                neg, ids_sorted = jax.lax.sort(
-                    (-(c_vals + 0.0), c_ids), num_keys=2)
-                return -neg[:, :k], ids_sorted[:, :k]
-
-            return jax.lax.cond(cert, fast, slow_gather, None)
-
-        # ---- XLA branch (CPU tests, f32 shards) ----------------------------
-        local_ids = jnp.arange(rows_pad, dtype=jnp.int32)
-        sims = xla_sims(q_block, shard)
-        sims = jnp.where((local_ids < total_valid)[None, :], sims, PAD_SIM)
-        bm = jnp.max(sims.reshape(t, nb, block), axis=2)
-        bids = select_blocks_hier(bm, t, kb)
-        # sims exist — take the candidate values straight from them.
-        cand_sims = jnp.take_along_axis(
-            sims.reshape(t, nb, block), bids[:, :, None], axis=1,
-            mode="promise_in_bounds",
-        ).reshape(t, kb * block)
-        local_rows = (
-            bids[:, :, None] * block
-            + jnp.arange(block, dtype=jnp.int32)[None, None, :]
-        ).reshape(t, kb * block)
-        cand_sims = jnp.where(local_rows < total_valid, cand_sims, PAD_SIM)
-        cand_ids = jnp.where(
-            local_rows < total_valid, base_i32 + local_rows, int_max
-        )
-        return finalize(cand_sims, cand_ids, t)
-
-    vals, ids = jax.lax.map(tile_fn, tiles)
-    vals = vals.reshape(n_tiles * q_tile, k)[:q]
-    ids = ids.reshape(n_tiles * q_tile, k)[:q]
-    return vals, ids
-
-
-#: Sound single-bf16-pass error bound for NORMALIZED operands: rounding
-#: each operand to bf16 perturbs it by <= 2^-9 relative (RN), so
-#: |s^ - s| <= 2^-8 * ||q|| * ||r|| (+ f32 accumulation slack added
-#: per-call as D * 2^-24). The 1.25 factor covers a non-RN conversion
-#: mode. Chip-measured max error on 1M x 768 normalized rows: 1.4e-3
-#: (scripts/proto_f32_rescore.py Q2) — 3.5x inside this bound.
-F32_CERT_EPS0 = float(2.0 ** -8 * 1.25)
-
-
-def rescore_f32_certified(
-    shard: jax.Array,
-    queries_cast: jax.Array,
-    k: int,
-    base: jax.Array,
-    num_rows: int,
-    q_tile: int = 512,
-    ks: int = 256,
-    kg: int = 512,
-) -> Tuple[jax.Array, jax.Array]:
-    """Certified two-stage exact top-k for **f32 shards on real TPUs** —
-    sims-free selection at MXU rate, oracle-arithmetic rescore, and a
-    sound in-program certificate that falls back to the dense path when
-    it cannot prove exactness.
-
-    The obstacle this clears: Mosaic f32 dots are NOT the f32 oracle's
-    arithmetic (default = one bf16 pass; even precision=HIGHEST differs
-    from XLA HIGHEST by ~ulps — :func:`..topk_pallas
-    .pallas_scoring_exact_for`), so the bf16 rescore pipeline cannot
-    simply run on f32, and the dense XLA path pays 6-pass HIGHEST sims
-    over the whole store (chip-measured 76.4 ms per 1024 queries at
-    1M x 768 — 13.4k q/s, MFU 0.10). The split that works:
-
-    1. **Selection by bounded-error arithmetic.** One Mosaic bm pass
-       over the f32 shard (single bf16 pass, full MXU rate, nothing
-       store-sized written) yields 8-row unit maxima ``bm^`` with
-       ``|bm^ - max| <= EPS1`` (:data:`F32_CERT_EPS0`; operands are
-       normalized rows/queries). Two-level group selection keeps the
-       top ``ks`` units per query — ``ks`` is sized so that on
-       uncorrelated data every row within ``EPS1`` of the true k-th
-       score lands in a selected unit (chip-measured: cert pass rate
-       1.000 at ks=256/kg=512, 0.972 at ks=192, 1M x 768, k=100).
-    2. **Exact scores from XLA.** :func:`..topk_pallas.gather_rows`
-       DMA-compacts each query's candidate rows (bit-exact movement);
-       the scores are then 2D XLA HIGHEST dots via an 8-query
-       keep-row-r arrangement. Chip-verified: XLA HIGHEST dots are
-       bitwise SHAPE-INDEPENDENT (subset and keep-row-r dots equal the
-       full-store matmul bit for bit — scripts/proto_f32_rescore.py Q1),
-       so candidate scores equal the oracle's and the positional-tie
-       finalize (candidates ordered by ascending row id) reproduces the
-       oracle's (score desc, id asc) order exactly.
-    3. **The certificate.** With ``thresh = max(first-excluded unit
-       bm^, first-excluded group max) + EPS1``: every non-candidate
-       row's true score is ``<= thresh`` (its unit/group max + error
-       bound), so ``exact_kth > thresh`` proves no outside row belongs
-       in (or ties into) the top-k. Per tile, ``lax.cond`` keeps the
-       certified fast result or recomputes densely (sims + hierarchical
-       selection, identical to the ``global``-style XLA branch) — so
-       exactness NEVER depends on the bound being tight: clustered /
-       duplicate-heavy stores simply fail the cert and take the dense
-       branch (ids identical, chip sweep enforces).
-
-    Measured (v5e, 1M x 768 f32, 1024 queries, k=100): 59.0 ms vs 76.4
-    dense = 17.3k q/s, ids + values bitwise equal to the serial oracle,
-    cert rate 1.000 (scripts/proto_f32_rescore3.py p2_8_256). Reference
-    capability: the reference's store IS f32
-    (src/vectorstore/polars.rs:35-37); this is its honest-dtype fast
-    path.
-    """
-    from .topk_pallas import (
-        bm2_emit_width, default_interpret, gather_rows,
-        matmul_blockmax2_only, pick_bm2_row_tile,
-    )
-
-    sub, block, cpg = 8, 256, 16
-    rows_valid, d = shard.shape
-    if jnp.dtype(shard.dtype) != jnp.float32:
-        raise ValueError(f"certified path is f32-only, got {shard.dtype}")
-    q = queries_cast.shape[0]
-    q_tile = max(8, (min(q_tile, q) // 8) * 8)
-    rows_pad = _round_up(rows_valid, 1024)
-    if rows_pad != rows_valid:
-        shard = jnp.pad(shard, ((0, rows_pad - rows_valid), (0, 0)))
-    nunits = rows_pad // sub
-    ks = min(ks, nunits)
-    if k > ks or ks % cpg:
-        raise ValueError(f"need k <= ks ({k} > {ks}) and ks % {cpg} == 0")
-    interpret = default_interpret()
-    # geometry feasibility (row tile + coarse emit) — engine routes only
-    # stores where this holds; raise loudly otherwise
-    rt = pick_bm2_row_tile(rows_pad, d, q_tile, sub, block, 4)
-    ew = bm2_emit_width(rows_pad, rt, sub, block)
-
-    base_i32 = base.astype(jnp.int32) if hasattr(base, "astype") else (
-        jnp.int32(base))
-    total_valid = jnp.minimum(jnp.int32(rows_valid), num_rows - base_i32)
-    int_max = jnp.iinfo(jnp.int32).max
-    eps1 = jnp.float32(F32_CERT_EPS0 + d * 2.0 ** -24)
-
-    pad_q = (-q) % q_tile
-    padded_queries = (
-        jnp.concatenate([queries_cast,
-                         jnp.zeros((pad_q, d), shard.dtype)])
-        if pad_q else queries_cast
-    )
-    n_tiles = padded_queries.shape[0] // q_tile
-    tiles = padded_queries.reshape(n_tiles, q_tile, d)
-    nb_dense = rows_pad // BLOCK
-
-    def finalize(cand_sims, cand_ids, t):
-        """Per-16 reduce + positional-tie top-k (cand ordered by
-        ascending global row id => stable ties = lowest id, the
-        oracle's discipline)."""
-        c = cand_sims.shape[1]
-        if c >= 4 * k and c % 16 == 0:
-            nr = c // 16
-            s3 = cand_sims.reshape(t, nr, 16)
-            rm = jnp.max(s3, axis=2)
-            kr = min(k, nr)
-            _, rpos = _fast_topk(rm, kr)
-            rpos = jnp.sort(rpos, axis=1)
-            cand_sims = jnp.take_along_axis(
-                s3, rpos[:, :, None], axis=1).reshape(t, kr * 16)
-            cand_ids = jnp.take_along_axis(
-                cand_ids.reshape(t, nr, 16), rpos[:, :, None], axis=1
-            ).reshape(t, kr * 16)
-        if cand_sims.shape[1] < k:
-            pad = k - cand_sims.shape[1]
-            cand_sims = jnp.pad(cand_sims, ((0, 0), (0, pad)),
-                                constant_values=PAD_SIM)
-            cand_ids = jnp.pad(cand_ids, ((0, 0), (0, pad)),
-                               constant_values=int_max)
-        top_vals, p = _fast_topk(cand_sims, k)
-        return top_vals, jnp.take_along_axis(cand_ids, p, axis=1)
-
-    def tile_fn(q_block):
-        t = q_block.shape[0]
-        outs = matmul_blockmax2_only(
-            q_block, shard, total_valid, interpret=interpret,
-            sub=sub, block=block, emit_block=bool(ew), emit_argmax=False,
-            emit_width=ew or block,
-        )
-        if not ew:
-            outs = (outs,)
-        bms_t = outs[0]
-        bmi_t = outs[-1] if ew else None
-        if bmi_t is not None:
-            gmax = bmi_t.T                       # [T, R/ew] — fused, free
-            gw = ew // sub
-        else:
-            gw = 32
-            gmax = jnp.max(bms_t.T.reshape(t, nunits // gw, gw), axis=2)
-        ng = gmax.shape[1]
-        kg_t = min(kg, ng - 1)
-        gvals, gids = _fast_topk(gmax, kg_t + 1)
-        gexcl = gvals[:, kg_t]                   # best EXCLUDED group
-        gids = jnp.sort(gids[:, :kg_t], axis=1)
-        pool = jnp.take_along_axis(
-            bms_t.T.reshape(t, ng, gw), gids[:, :, None], axis=1,
-            mode="promise_in_bounds",
-        ).reshape(t, kg_t * gw)
-        ks_t = min(ks, pool.shape[1] - 1)
-        ks_t -= ks_t % cpg
-        if ks_t < k:
-            raise ValueError(
-                f"certified pool too small: ks_t={ks_t} < k={k} "
-                f"(pool {pool.shape[1]}) — store too small for this path"
-            )
-        vals, pos = _fast_topk(pool, ks_t + 1)
-        uexcl = vals[:, ks_t]                    # best EXCLUDED pool unit
-        g_of = jnp.take_along_axis(gids, pos[:, :ks_t] // gw, axis=1,
-                                   mode="promise_in_bounds")
-        uids = jnp.sort(g_of * gw + pos[:, :ks_t] % gw, axis=1)
-
-        rows = gather_rows(shard, uids, unit=sub, cpg=cpg,
-                           interpret=interpret)   # [T, ks_t*sub, D]
-        c = ks_t * sub
-
-        def group_fn(args):
-            q8, r8 = args                        # [8, D], [8, c, D]
-            s = xla_sims(q8, r8.reshape(8 * c, d))      # [8, 8c] HIGHEST
-            return s.reshape(8, 8, c)[jnp.arange(8), jnp.arange(8)]
-
-        sims = jax.lax.map(
-            group_fn,
-            (q_block.reshape(t // 8, 8, d), rows.reshape(t // 8, 8, c, d)),
-        ).reshape(t, c)
-        rid = (
-            uids[:, :, None] * sub
-            + jnp.arange(sub, dtype=jnp.int32)[None, None, :]
-        ).reshape(t, c)
-        ok = rid < total_valid
-        sims = jnp.where(ok, sims, PAD_SIM)
-        cand_ids = jnp.where(ok, base_i32 + rid, int_max)
-        fast_vals, fast_ids = finalize(sims, cand_ids, t)
-        thresh = jnp.maximum(uexcl, gexcl) + eps1
-        cert = jnp.all(fast_vals[:, k - 1] > thresh)
-
-        def dense(_):
-            """Oracle-arithmetic dense recompute — the same sims +
-            hierarchical-selection shape as the rescore XLA branch."""
-            local_ids = jnp.arange(rows_pad, dtype=jnp.int32)
-            s = xla_sims(q_block, shard)
-            s = jnp.where((local_ids < total_valid)[None, :], s, PAD_SIM)
-            bm = jnp.max(s.reshape(t, nb_dense, BLOCK), axis=2)
-            kb = min(k, nb_dense)
-            bids = jnp.sort(_fast_topk(bm, kb)[1], axis=1)
-            cand = jnp.take_along_axis(
-                s.reshape(t, nb_dense, BLOCK), bids[:, :, None], axis=1,
-                mode="promise_in_bounds",
-            ).reshape(t, kb * BLOCK)
-            lrows = (
-                bids[:, :, None] * BLOCK
-                + jnp.arange(BLOCK, dtype=jnp.int32)[None, None, :]
-            ).reshape(t, kb * BLOCK)
-            cand = jnp.where(lrows < total_valid, cand, PAD_SIM)
-            cids = jnp.where(lrows < total_valid, base_i32 + lrows,
-                             int_max)
-            return finalize(cand, cids, t)
-
-        return jax.lax.cond(cert, lambda _: (fast_vals, fast_ids),
-                            dense, None)
-
-    vals, ids = jax.lax.map(tile_fn, tiles)
-    vals = vals.reshape(n_tiles * q_tile, k)[:q]
-    ids = ids.reshape(n_tiles * q_tile, k)[:q]
-    return vals, ids
-
-
-# ---------------------------------------------------------------------------
-# Per-device scan
-# ---------------------------------------------------------------------------
 
 
 def local_topk(

@@ -1,4 +1,4 @@
-"""Device mesh construction — the TPU-native replacement for the MPI world.
+"""Device mesh construction — the replacement for the MPI world.
 
 The reference initializes an MPI universe and derives (rank, size)
 (reference: src/main.rs:27-30); every collective and barrier is hand-written

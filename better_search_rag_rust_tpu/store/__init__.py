@@ -1,6 +1,6 @@
 from .vectorstore import (  # noqa: F401
     GLOBAL_STORE_NAME,
-    ParquetVectorStore,
+    VectorStore,
     global_store,
     global_store_path,
     local_store,

@@ -1,10 +1,10 @@
 """Device-resident sharded embedding store.
 
-This is the TPU-native replacement for the reference's search-time store
-access: there, **every rank parses the entire global.parquet and then slices
-its block** (reference: src/mpi_helpers/metrics.rs:23-33 → polars.rs:50-77),
-so search memory is O(total rows) per process. Here the store lives in HBM as
-one block-sharded ``jax.Array`` over the mesh's ``data`` axis — each device
+This replaces the reference's search-time store access: there, **every rank
+parses the entire global.parquet and then slices its block** (reference:
+src/mpi_helpers/metrics.rs:23-33 → polars.rs:50-77), so search memory is
+O(total rows) per process. Here the store lives in device memory as one
+block-sharded ``jax.Array`` over the mesh's ``data`` axis — each device
 holds only its contiguous row block (the ``interval_by_rank`` layout,
 reference: src/mpi_helpers/load_balance.rs:24-42, expressed as
 ``NamedSharding(mesh, P("data", None))``).
@@ -12,13 +12,13 @@ reference: src/mpi_helpers/load_balance.rs:24-42, expressed as
 Rows are L2-normalized once at load (with the reference's zero-magnitude
 guard: zero rows stay zero so their cosine distance is 1.0 —
 src/metrics.rs:157-159) and stored in ``bfloat16`` by default; scoring then
-reduces to an MXU matmul with float32 accumulation.
+reduces to a matmul with float32 accumulation.
 
 Padding discipline:
 * rows are padded so every device owns the same multiple of the scan chunk
   (static shapes for XLA);
-* features are padded to a multiple of 128 (TPU lane width) with zeros, which
-  leaves dot products unchanged;
+* features are padded to a multiple of 128 with zeros, which leaves dot
+  products unchanged;
 * padded rows are masked to a sentinel similarity inside the kernel and can
   never displace valid rows (see :mod:`..ops.topk`).
 """
@@ -72,7 +72,7 @@ def _normalize_cast(x: jax.Array, dtype: str) -> jax.Array:
 
 @dataclass
 class DeviceStore:
-    """Normalized, padded, block-sharded embedding matrix in HBM."""
+    """Normalized, padded, block-sharded embedding matrix in device memory."""
 
     data: jax.Array  #: [padded_rows, padded_dim], normalized, store dtype
     mesh: Mesh
@@ -141,7 +141,7 @@ class DeviceStore:
         )
 
     @staticmethod
-    def from_parquet_sharded(
+    def from_file_sharded(
         path,
         mesh: Mesh,
         dtype: str = "bfloat16",
@@ -149,11 +149,11 @@ class DeviceStore:
         data_axis: str = "data",
         matryoshka_dim: Optional[int] = None,
     ) -> "DeviceStore":
-        """Build the device store with each host parsing **only its own row
-        blocks** from the merged Parquet store.
+        """Build the device store with each host reading **only its own row
+        blocks** from the merged store file.
 
         This is the multi-host store lifecycle (build on N ingest hosts,
-        serve on M search hosts): row count comes from Parquet metadata,
+        serve on M search hosts): row count comes from the file header,
         each addressable device's block is read with
         :func:`..store.vectorstore.read_matrix_slice`, and the global sharded
         array is assembled with ``jax.make_array_from_single_device_arrays``
@@ -161,9 +161,9 @@ class DeviceStore:
         path makes every rank parse the entire global.parquet
         (src/mpi_helpers/metrics.rs:23-33).
         """
-        from .vectorstore import parquet_row_count, read_matrix_slice
+        from .vectorstore import read_matrix_slice, store_row_count
 
-        n = parquet_row_count(path)
+        n = store_row_count(path)
         if n == 0:
             raise ValueError(f"store at {path} is empty")
         probe = read_matrix_slice(path, 0, 1)

@@ -1,27 +1,25 @@
-"""Persistent Parquet-backed vector store.
+"""Persistent vector store: one float32 ``.npy`` matrix per store.
 
 Capability parity with the reference's ``PolarsVectorstore``
 (reference: src/vectorstore/polars.rs:79-247) and shard naming helpers
 (reference: src/mpi_helpers/vectorstore.rs:5-20):
 
-* one column ``embeddings`` holding ``List<f32>`` rows (polars.rs:35-48);
-* ``new(path, empty)`` — fresh empty store, or load from Parquet, creating
+* ``new(path, empty)`` — fresh empty store, or load from disk, creating
   parent dirs and an empty file when absent (polars.rs:50-77);
 * ``append`` / ``append_many`` / ``get`` / ``get_many(slice)`` / ``persist`` /
   ``reload(force)`` / ``reset`` / ``count`` (polars.rs:79-247);
-* per-shard files ``rank_{r}.parquet`` merged into ``global.parquet`` in shard
+* per-shard files ``rank_{r}.npy`` merged into ``global.npy`` in shard
   order — the fixed order is what keeps local→global index translation valid
   (src/mpi_helpers/tasks.rs:181-217).
 
-Implementation notes (TPU-first deviations):
-
-* Rows are held as contiguous ``float32`` numpy chunks, not a DataFrame —
-  ``matrix()`` hands the search engine a zero-copy-ish ``[N, D]`` array ready
-  for device upload, where the reference pays a per-row ``Vec<f32>``
-  extraction (polars.rs:121-169).
-* Parquet writes use a FixedSizeList column when all rows share one dim
-  (faster, typed); variable-length List columns are still read transparently
-  for compatibility.
+Where the reference writes Parquet, the store here is a NumPy ``.npy``
+file holding one ``[N, D]`` float32 matrix: written through a temporary
+file and ``os.replace`` (a reader or a crash-resume never sees a torn
+file), read with ``np.load(mmap_mode="r")`` so a sharded load reads only
+the rows it needs. Rows are held as contiguous ``float32`` chunks, and
+``matrix()`` hands the search engine an ``[N, D]`` array ready for device
+upload, where the reference pays a per-row ``Vec<f32>`` extraction
+(polars.rs:121-169).
 """
 
 from __future__ import annotations
@@ -32,51 +30,17 @@ from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
-import pyarrow as pa
-import pyarrow.parquet as pq
 
 from ..utils.logging import host_log
 
-EMBEDDINGS_COLUMN = "embeddings"
 #: reference: src/mpi_helpers/vectorstore.rs:16-20
-GLOBAL_STORE_NAME = "global.parquet"
-
-_warmed = False
-
-
-def _warm_parquet_writer() -> None:
-    """Fire-and-forget background warm-up of Arrow's C++ Parquet writer.
-
-    The FIRST ``pq.write_table`` in a process pays ~1.1 s of lazy C++
-    initialization (measured; warm writes of the same table take 10 ms),
-    which otherwise lands on the ingest critical path as a giant final
-    ``persist``. Triggered at store creation so the init runs on a daemon
-    thread while ingest tokenizes/encodes; Arrow's init is thread-safe, so
-    a persist racing the warm-up simply shares the cost."""
-    global _warmed
-    if _warmed:
-        return
-    _warmed = True
-
-    def _go() -> None:
-        try:
-            sink = pa.BufferOutputStream()
-            pq.write_table(
-                pa.table({EMBEDDINGS_COLUMN: pa.array([1.0], pa.float32())}),
-                sink, compression="none",
-            )
-        except Exception:  # pragma: no cover - warm-up must never fail loud
-            pass
-
-    import threading
-
-    threading.Thread(target=_go, name="parquet-warmup", daemon=True).start()
+GLOBAL_STORE_NAME = "global.npy"
 
 
 def local_store_path(store_dir: str | os.PathLike, shard: int) -> Path:
-    """Per-shard file ``rank_{r}.parquet``
+    """Per-shard file ``rank_{r}.npy``
     (reference: src/mpi_helpers/vectorstore.rs:5-13)."""
-    return Path(store_dir) / f"rank_{shard}.parquet"
+    return Path(store_dir) / f"rank_{shard}.npy"
 
 
 def global_store_path(store_dir: str | os.PathLike) -> Path:
@@ -84,78 +48,56 @@ def global_store_path(store_dir: str | os.PathLike) -> Path:
     return Path(store_dir) / GLOBAL_STORE_NAME
 
 
-class ParquetVectorStore:
-    """Append-only embedding store persisted as Parquet
+def _open_matrix(path: Path) -> np.ndarray:
+    """Memory-mapped, read-only ``[N, D]`` float32 view of a store file
+    (a zero-byte file is an empty store)."""
+    if path.stat().st_size == 0:
+        return np.zeros((0, 0), dtype=np.float32)
+    mat = np.load(path, mmap_mode="r", allow_pickle=False)
+    if mat.ndim != 2 or mat.dtype != np.float32:
+        raise ValueError(
+            f"{path} holds a {mat.dtype} array of shape {mat.shape}, "
+            "not an [N, D] float32 matrix"
+        )
+    return mat
+
+
+def _write_matrix(path: Path, mat: np.ndarray) -> None:
+    """Atomic write: a reader (or a crash-resume) can never observe a torn
+    store file."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    with open(tmp, "wb") as f:
+        np.save(f, np.ascontiguousarray(mat, dtype=np.float32))
+    os.replace(tmp, path)
+
+
+class VectorStore:
+    """Append-only embedding store persisted as one ``.npy`` matrix
     (reference: src/vectorstore/polars.rs:7-247)."""
 
     def __init__(self, path: str | os.PathLike, empty: bool = True):
         """``empty=True`` starts fresh in memory; ``empty=False`` loads the
-        Parquet file, creating directories and an empty file when it does not
+        file, creating directories and an empty file when it does not
         exist yet (reference: src/vectorstore/polars.rs:50-77)."""
         self.path = Path(path)
         self._chunks: List[np.ndarray] = []
         self._count = 0
-        _warm_parquet_writer()
         if not empty:
-            self._read_parquet(create_if_missing=True)
+            self._read(create_if_missing=True)
 
     # -- internal -----------------------------------------------------------
 
-    def _read_parquet(self, create_if_missing: bool) -> None:
+    def _read(self, create_if_missing: bool) -> None:
         if not self.path.exists():
             if not create_if_missing:
                 raise FileNotFoundError(self.path)
-            self.path.parent.mkdir(parents=True, exist_ok=True)
-            self._write_table(self._empty_table())
+            _write_matrix(self.path, np.zeros((0, 0), dtype=np.float32))
             self._chunks, self._count = [], 0
             return
-        if self.path.stat().st_size == 0:
-            # A zero-byte file is not valid Parquet; treat as empty store
-            # (the reference writes a real empty-frame Parquet file,
-            # polars.rs:62-72 — we do too, but tolerate foreign zero-byte
-            # files instead of crashing).
-            self._chunks, self._count = [], 0
-            return
-        # memory_map: the non-mmap read path is pathologically slow on
-        # overlay/network filesystems (measured 660-1200 ms vs 26 ms for a
-        # 35 MB file); mmap also avoids a copy for the PLAIN float pages.
-        table = pq.read_table(
-            self.path, columns=[EMBEDDINGS_COLUMN], memory_map=True
-        )
-        col = table.column(EMBEDDINGS_COLUMN)
-        rows: List[np.ndarray] = []
-        for chunk in col.chunks:
-            if pa.types.is_fixed_size_list(chunk.type):
-                dim = chunk.type.list_size
-                flat = np.asarray(chunk.values, dtype=np.float32)
-                rows.append(flat.reshape(-1, dim))
-            else:
-                # Generic List<f32>: may be ragged in foreign files.
-                pylist = chunk.to_pylist()
-                for v in pylist:
-                    rows.append(np.asarray(v, dtype=np.float32).reshape(1, -1))
-        self._chunks = [r for r in rows if r.size]
-        self._count = sum(c.shape[0] for c in self._chunks)
-
-    def _empty_table(self) -> pa.Table:
-        typ = pa.list_(pa.float32())
-        return pa.table({EMBEDDINGS_COLUMN: pa.array([], type=typ)})
-
-    def _write_table(self, table: pa.Table) -> None:
-        # Atomic: a reader (or a crash-resume) can never observe a torn
-        # Parquet file.
-        self.path.parent.mkdir(parents=True, exist_ok=True)
-        tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
-        # Embedding vectors are near-incompressible float noise: snappy
-        # (the default) costs 6x the write time for ~0% size win (measured
-        # 722 -> 117 ms on 35 MB), and dictionary/statistics pages are
-        # useless for unique float rows. PLAIN encoding also makes reads
-        # mmap-friendly.
-        pq.write_table(
-            table, tmp,
-            compression="none", use_dictionary=False, write_statistics=False,
-        )
-        os.replace(tmp, self.path)
+        mat = _open_matrix(self.path)
+        self._chunks = [mat] if mat.shape[0] else []
+        self._count = mat.shape[0]
 
     # -- mutation ------------------------------------------------------------
 
@@ -229,8 +171,8 @@ class ParquetVectorStore:
         leaving the store empty.
 
         The in-place mutation surface :meth:`..pipeline.Pipeline.update`
-        needs: ``matrix()`` may hand back a read-only mmap view (Parquet
-        pages), and copying on top of it while the store still holds its
+        needs: ``matrix()`` may hand back a read-only mmap view of the
+        store file, and copying on top of it while the store still holds its
         chunks transiently doubles host RAM (~60 GB for a 10M x 768 f32
         store). Here at most one materialized copy exists at any moment —
         the store's reference is dropped before any copy is made, and a
@@ -263,17 +205,9 @@ class ParquetVectorStore:
     # -- persistence ----------------------------------------------------------
 
     def persist(self) -> None:
-        """Write all rows to Parquet and verify the file exists
+        """Write all rows to disk and verify the file exists
         (reference: polars.rs:183-241)."""
-        mat = self.matrix()
-        if mat.size == 0:
-            table = self._empty_table()
-        else:
-            n, d = mat.shape
-            values = pa.array(mat.reshape(-1), type=pa.float32())
-            col = pa.FixedSizeListArray.from_arrays(values, d)
-            table = pa.table({EMBEDDINGS_COLUMN: col})
-        self._write_table(table)
+        _write_matrix(self.path, self.matrix())
         if not self.path.exists():  # reference: polars.rs:232-239
             raise IOError(f"persist failed: {self.path} missing after write")
 
@@ -285,23 +219,23 @@ class ParquetVectorStore:
             raise IOError(f"reload: {self.path} is missing or empty")
         self._chunks, self._count = [], 0
         if self.path.exists():
-            self._read_parquet(create_if_missing=force)
+            self._read(create_if_missing=force)
 
 
 def local_store(
     store_dir: str | os.PathLike, shard: int, empty: bool = True
-) -> ParquetVectorStore:
+) -> VectorStore:
     """Open shard ``shard``'s store
     (reference: src/mpi_helpers/vectorstore.rs:5-13)."""
-    return ParquetVectorStore(local_store_path(store_dir, shard), empty=empty)
+    return VectorStore(local_store_path(store_dir, shard), empty=empty)
 
 
 def global_store(
     store_dir: str | os.PathLike, empty: bool = True
-) -> ParquetVectorStore:
+) -> VectorStore:
     """Open the merged store
     (reference: src/mpi_helpers/vectorstore.rs:16-20)."""
-    return ParquetVectorStore(global_store_path(store_dir), empty=empty)
+    return VectorStore(global_store_path(store_dir), empty=empty)
 
 
 def manifest_path(store_dir: str | os.PathLike) -> Path:
@@ -342,91 +276,56 @@ def load_attrs(store_dir: str | os.PathLike) -> Optional[List]:
         return None
 
 
-def parquet_row_count(path: str | os.PathLike) -> int:
-    """Row count from Parquet metadata only — no data read. The reference has
-    no metadata path at all: ``get_count`` requires the full frame in memory
-    (src/vectorstore/polars.rs:243-246 after :50-77)."""
+def store_row_count(path: str | os.PathLike) -> int:
+    """Row count from the file header only — no data read. The reference
+    has no metadata path at all: ``get_count`` requires the full frame in
+    memory (src/vectorstore/polars.rs:243-246 after :50-77)."""
     path = Path(path)
     if not path.exists() or path.stat().st_size == 0:
         return 0
-    return pq.ParquetFile(path).metadata.num_rows
+    return int(_open_matrix(path).shape[0])
 
 
 def read_matrix_slice(
     path: str | os.PathLike, offset: int, length: int
 ) -> np.ndarray:
     """Read only rows ``[offset, offset+length)`` as an ``[length, D]`` f32
-    matrix, skipping non-overlapping row groups.
+    matrix (a slice of the memory map: only those rows' pages are read).
 
     This is the multi-host store lifecycle primitive: a store built by N
-    ingest hosts and merged once can be served by M hosts, each parsing only
+    ingest hosts and merged once can be served by M hosts, each reading only
     its own block — where the reference makes **every rank parse the entire
     global.parquet** and then slice (src/mpi_helpers/metrics.rs:23-33 ->
     polars.rs:50-77).
     """
     if length <= 0:
         return np.zeros((0, 0), dtype=np.float32)
-    pf = pq.ParquetFile(path, memory_map=True)
-    end = offset + length
-    picked = []
-    row_start = 0
-    for rg in range(pf.num_row_groups):
-        rg_rows = pf.metadata.row_group(rg).num_rows
-        row_end = row_start + rg_rows
-        if row_end > offset and row_start < end:
-            picked.append((rg, row_start))
-        row_start = row_end
-    if not picked:
+    mat = _open_matrix(Path(path))
+    if offset < 0 or offset + length > mat.shape[0]:
         raise IndexError(
-            f"slice ({offset}, {length}) out of range for {row_start} rows"
+            f"slice ({offset}, {length}) out of range for {mat.shape[0]} rows"
         )
-    chunks = []
-    for rg, rg_start in picked:
-        table = pf.read_row_group(rg, columns=[EMBEDDINGS_COLUMN])
-        col = table.column(EMBEDDINGS_COLUMN)
-        mats = []
-        for chunk in col.chunks:
-            if pa.types.is_fixed_size_list(chunk.type):
-                dim = chunk.type.list_size
-                mats.append(
-                    np.asarray(chunk.values, dtype=np.float32).reshape(-1, dim)
-                )
-            else:
-                mats.append(
-                    np.asarray(
-                        [np.asarray(v, dtype=np.float32) for v in chunk.to_pylist()]
-                    )
-                )
-        mat = np.concatenate(mats) if len(mats) > 1 else mats[0]
-        lo = max(0, offset - rg_start)
-        hi = min(mat.shape[0], end - rg_start)
-        chunks.append(mat[lo:hi])
-    out = np.concatenate(chunks) if len(chunks) > 1 else chunks[0]
-    if out.shape[0] != length:
-        raise IndexError(
-            f"slice ({offset}, {length}) out of range ({out.shape[0]} read)"
-        )
-    return np.ascontiguousarray(out)
+    return np.array(mat[offset: offset + length], dtype=np.float32)
 
 
 def partial_merge_marker(store_dir: str | os.PathLike) -> Path:
-    """Marker written next to global.parquet when an allow-partial merge
+    """Marker written next to global.npy when an allow-partial merge
     skipped shards — serving layers can refuse or warn on it."""
-    return Path(store_dir) / "global.parquet.partial"
+    return Path(store_dir) / "global.npy.partial"
 
 
 def global_ahead_marker(store_dir: str | os.PathLike) -> Path:
     """Marker written by :meth:`..pipeline.Pipeline.update` when rows were
-    appended directly to global.parquet: the global store is now AHEAD of the
-    per-shard ``rank_*.parquet`` stores, and a merge (which rebuilds global
+    appended directly to global.npy: the global store is now AHEAD of the
+    per-shard ``rank_*.npy`` stores, and a merge (which rebuilds global
     from the shards) would silently discard the appended rows. ``merge``
     refuses while this marker exists unless forced."""
-    return Path(store_dir) / "global.parquet.ahead"
+    return Path(store_dir) / "global.npy.ahead"
 
 
 def update_commit_path(store_dir: str | os.PathLike) -> Path:
     """Commit marker for :meth:`..pipeline.Pipeline.update`'s multi-file
-    rewrite (global.parquet + manifest.json + manifest.attrs.json are three
+    rewrite (global.npy + manifest.json + manifest.attrs.json are three
     separate atomic renames; this marker, written LAST, is the commit point
     — the same discipline as ingest's ``.progress`` marker). It binds the
     store file's identity (size + mtime_ns) to fingerprints of the manifest
@@ -446,10 +345,10 @@ def _file_sha(path: Path) -> Optional[str]:
 
 def _store_sample_sha(path: Path, blocks: int = 32,
                       block_bytes: int = 16384) -> str:
-    """Sampled content fingerprint of a (possibly multi-GB) Parquet store:
+    """Sampled content fingerprint of a (possibly multi-GB) store file:
     sha256 over the file size plus ``blocks`` evenly spaced reads pinned
     at offset 0 and EOF (<= 512 KB of IO total). Any row-count change
-    moves the size (PLAIN fixed-size rows); any compaction/append shifts
+    moves the size (fixed-size rows); any compaction/append shifts
     every byte after the edit point, so some sampled block (the EOF block
     at minimum) changes — while a byte-identical copy (backup restore,
     image layer) matches exactly even though its mtime differs.
@@ -488,7 +387,7 @@ def write_update_commit(store_dir: str | os.PathLike) -> None:
         "store_size": st.st_size,
         "store_mtime_ns": st.st_mtime_ns,
         "store_sample_sha": _store_sample_sha(gpath),
-        "rows": parquet_row_count(gpath),
+        "rows": store_row_count(gpath),
         "manifest_sha": _file_sha(manifest_path(store_dir)),
         "attrs_sha": _file_sha(attrs_path(store_dir)),
     }
@@ -525,7 +424,7 @@ def validate_update_commit(store_dir: str | os.PathLike) -> Optional[str]:
         # (torn).
         sample = rec.get("store_sample_sha")
         if sample is None or _store_sample_sha(gpath) != sample:
-            problems.append("global.parquet differs from the last "
+            problems.append("global.npy differs from the last "
                             "committed update (content mismatch)")
     # A MISSING sidecar is deliberate stripping (legacy/foreign store), not
     # crash evidence — the atomic renames replace files, never delete them;
@@ -577,7 +476,7 @@ def merge_vector_stores(
     store_dir: str | os.PathLike,
     allow_partial: bool = False,
     force: bool = False,
-) -> ParquetVectorStore:
+) -> VectorStore:
     """Merge per-shard stores into the global store **in shard order** — the
     fixed order keeps local→global index translation valid
     (reference: src/mpi_helpers/tasks.rs:181-217).
@@ -587,12 +486,12 @@ def merge_vector_stores(
     store (the reference does exactly that, tasks.rs:202-212 — a one-line log
     is the only trace). Here that is an error unless ``allow_partial=True``,
     in which case the skipped shards are recorded in a
-    ``global.parquet.partial`` marker beside the store. Present-but-empty
+    ``global.npy.partial`` marker beside the store. Present-but-empty
     shards are legitimate (a host can be assigned zero files) and merge as
     zero rows. Caller persists.
 
     When :func:`global_ahead_marker` exists (an incremental ``update()``
-    appended rows straight to global.parquet that live in NO shard), a merge
+    appended rows straight to global.npy that live in NO shard), a merge
     would rebuild global from the stale shards and silently discard those
     rows — refused unless ``force=True`` (which also clears the marker)."""
     ahead = global_ahead_marker(store_dir)
@@ -621,7 +520,7 @@ def merge_vector_stores(
             skipped.append(shard)
             continue
         try:
-            shard_store = ParquetVectorStore(path, empty=False)
+            shard_store = VectorStore(path, empty=False)
         except Exception as exc:
             if not allow_partial:
                 raise RuntimeError(

@@ -27,7 +27,7 @@ def _host_index() -> int:
         return 0
 
 
-def get_logger(name: str = "bsr_tpu") -> logging.Logger:
+def get_logger(name: str = "bsr") -> logging.Logger:
     global _CONFIGURED
     logger = logging.getLogger(name)
     if not _CONFIGURED:

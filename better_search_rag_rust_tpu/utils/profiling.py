@@ -1,4 +1,4 @@
-"""Device profiling — the TPU-native replacement for the reference's tracing.
+"""Device profiling — the replacement for the reference's tracing.
 
 The reference installs ``tracing_subscriber`` inside its model constructor to
 capture ONNX Runtime events (reference: src/llm/hf.rs:30) and otherwise times

@@ -10,18 +10,19 @@ at the output directory (copy it into the zero-egress environment if needed):
 
 This is the analogue of the reference's on-demand model export
 (run-slurm.sh:27-32 runs ``optimum-cli export onnx`` before every job); the
-TPU framework consumes the raw HF checkpoint directly (safetensors/.bin +
+framework consumes the raw HF checkpoint directly (safetensors/.bin +
 config.json + tokenizer.json — see ``models/nomic.py load_hf_checkpoint`` and
 ``models/tokenizer.py load_tokenizer``), so the export is a plain snapshot
 download, no ONNX conversion step.
 
 The produced directory enables, in order of strength:
   * the real-tokenizer path (``tokenizer.json``),
-  * the Flax forward on real weights (``*.safetensors`` + ``config.json``),
-  * the definitive torch-vs-Flax cross-implementation check when the
+  * the JAX forward on real weights (``*.safetensors`` + ``config.json``),
+  * the definitive torch-vs-JAX cross-implementation check when the
     checkpoint's own ``modeling_hf_nomic_bert.py`` is present
     (``tests/test_golden_parity.py::test_real_checkpoint_cross_implementation``),
-  * on-chip encoder parity (``scripts/chip_encoder_parity.py``).
+  * on-card encoder parity (``scripts/verify_checkpoint.py``'s
+    ``chip_parity`` stage).
 """
 
 from __future__ import annotations

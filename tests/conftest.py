@@ -1,4 +1,4 @@
-"""Test harness: emulate an 8-device TPU mesh on CPU.
+"""Test harness: emulate an 8-device mesh on CPU.
 
 The reference has no multi-process test at all — its distributed layer is
 only validated by running the binary under mpiexec (SURVEY.md §4). JAX lets
@@ -17,8 +17,6 @@ if "xla_force_host_platform_device_count" not in flags:
 
 import jax  # noqa: E402
 
-# Env-level JAX_PLATFORMS is overridden by site customization in some
-# deployments (a PJRT plugin may force itself first); the config API wins.
 jax.config.update("jax_platforms", "cpu")
 
 import pytest  # noqa: E402

@@ -280,10 +280,10 @@ def test_compact_battery_summary_fits_capture_channel():
             "spread_pct": 1.57, "e2e_qps": 5123.45,
             "stream_e2e_qps": 13411.22, "stream_store_upload_qps": 19900.12,
             "p50_batch_latency_s": 0.1162, "device_batch_latency_s": 0.0123,
-            "kernel": "rescore", "rows": 10_000_000, "dim": 768,
+            "kernel": "global", "rows": 10_000_000, "dim": 768,
             "batch": 1024, "top_k": 100, "store_dtype": "int8",
             "store_build_s": 11.14, "serial_baseline_qps": 2.45,
-            "baseline_24rank_qps": 58.91, "devices": 1, "platform": "tpu",
+            "baseline_24rank_qps": 58.91, "devices": 1, "platform": "gpu",
         }
 
     full = search_like("search_1m")
@@ -294,14 +294,14 @@ def test_compact_battery_summary_fits_capture_channel():
         "encode": {"metric": "encode_files_per_sec", "value": 1130.67,
                    "unit": "files/sec", "vs_baseline": 0.0, "mfu": 0.721,
                    "batch": 256, "max_tokens": 512,
-                   "attention_impl": "auto", "platform": "tpu"},
+                   "attention_impl": "auto", "platform": "gpu"},
         "jabref": {"metric": "jabref_search_qps", "value": 664032.58,
                    "unit": "queries/sec", "vs_baseline": 1.41,
                    "recall_at_10": 1.0, "oracle_overlap": 1.0,
                    "files": 2305, "rows": 2305, "top_k": 50,
                    "speedup_vs_serial": 33.88, "serial_qps": 19601.2,
                    "e2e_qps": 59.86, "ingest_files_per_sec": 1309.44,
-                   "report_has_speedup": True, "platform": "tpu"},
+                   "report_has_speedup": True, "platform": "gpu"},
         "serve_100k": {"metric": "serve_qps", "value": 549.27,
                        "unit": "queries/sec", "vs_baseline": 14.57,
                        "recall_at_10": 1.0, "coalescing": 16.0,
@@ -349,8 +349,8 @@ def test_compact_battery_summary_many_suites_still_fits():
         "unit": "queries/sec", "vs_baseline": 379.27,
         "recall_at_10": 1.0, "mfu": 0.6513,
         "qps_repeats": [84321.12, 83211.45, 82999.01],
-        "spread_pct": 1.57, "kernel": "rescore", "devices": 1,
-        "platform": "tpu",
+        "spread_pct": 1.57, "kernel": "global", "devices": 1,
+        "platform": "gpu",
         "battery": {
             f"suite_with_a_fairly_long_name_{i:03d}": {
                 "value": 12345.67, "recall_at_10": 1.0, "mfu": 0.5,
@@ -390,7 +390,7 @@ def test_bench_main_writes_detail_and_compact_stdout(monkeypatch, tmp_path,
     big = {"metric": "search_1m_qps", "value": 84000.0,
            "unit": "queries/sec", "vs_baseline": 379.0, "recall_at_10": 1.0,
            "mfu": 0.65, "qps_repeats": [84000.0, 83000.0, 82000.0],
-           "spread_pct": 2.4, "kernel": "rescore",
+           "spread_pct": 2.4, "kernel": "global",
            "filler": "x" * 4000,  # guarantees the full form would overflow
            "battery": {
                "encode": {"metric": "encode_files_per_sec", "value": 1133.0,

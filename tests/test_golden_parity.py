@@ -13,7 +13,7 @@ Any divergence in rotary interleaving, GLU split order, pooling or layernorm
 placement makes the two disagree.
 
 A committed golden fixture (``tests/golden/nomic_golden.npz``, generated by
-the torch implementation) additionally pins the Flax forward against future
+the torch implementation) additionally pins the JAX forward against future
 regressions without needing torch at test time. When a real checkpoint
 export IS present (BSR_CHECKPOINT_DIR), the same cross-check runs against
 the real weights.
@@ -161,7 +161,7 @@ def test_flax_matches_independent_torch_implementation():
 
 def test_flax_matches_committed_golden():
     """Regression pin: the committed golden embeddings were produced by the
-    independent torch implementation; the Flax forward must keep matching
+    independent torch implementation; the JAX forward must keep matching
     them bit-for-bit-ish across refactors."""
     assert GOLDEN.exists(), (
         "golden fixture missing — regenerate with scripts/gen_golden.py"
@@ -201,7 +201,7 @@ def test_real_checkpoint_cross_implementation():
     """When a real nomic-embed-text-v1.5 export exists on disk, the same
     double-implementation check runs against the real weights: a torch
     forward through the checkpoint's own modeling code (when transformers
-    can load it) vs the Flax forward, on the checkpoint's own tokenizer."""
+    can load it) vs the JAX forward, on the checkpoint's own tokenizer."""
     import jax.numpy as jnp
 
     from better_search_rag_rust_tpu.models.nomic import (
@@ -243,7 +243,7 @@ def test_real_checkpoint_cross_implementation():
         try:
             hf = AutoModel.from_pretrained(ckpt, trust_remote_code=True)
         except Exception:
-            hf = None  # export without modeling code; Flax checks stand
+            hf = None  # export without modeling code; JAX checks stand
         if hf is not None:
             hf.eval()
             with torch.no_grad():

@@ -3,7 +3,7 @@
 Mirrors the reference's encoder suite (reference: src/llm/hf.rs:127-317):
 dim=768 and non-degenerate values, batch rows differ, empty-string error,
 empty batch -> [], determinism across calls — plus the tokenizer fixed-shape
-contract and the Flax NomicBERT forward (random-init, shape/grad checks).
+contract and the JAX NomicBERT forward (random-init, shape/grad checks).
 """
 
 import numpy as np
@@ -181,9 +181,9 @@ def test_nomic_deterministic(tiny_nomic):
 
 
 def test_nomic_mesh_dp_encode_matches_single_device(tiny_nomic):
-    """Mesh-DP encoding (batch sharded over 8 devices, fused attention via
-    shard_map) agrees with the single-device encoder to bf16 noise, and the
-    service contract composes through create_encoder(mesh=...)."""
+    """Mesh-DP encoding (batch sharded over 8 devices) agrees with the
+    single-device encoder to bf16 noise, and the service contract composes
+    through create_encoder(mesh=...)."""
     from better_search_rag_rust_tpu.config import EncoderConfig
     from better_search_rag_rust_tpu.models.encoder import create_encoder
     from better_search_rag_rust_tpu.parallel import create_mesh
@@ -191,7 +191,6 @@ def test_nomic_mesh_dp_encode_matches_single_device(tiny_nomic):
     mesh = create_mesh(shape=(8,), axis_names=("data",))
     enc_dp = NomicEncoder(tiny_nomic.config, params=tiny_nomic.params,
                           mesh=mesh)
-    assert enc_dp.config.dp_shard_attention == "data"
 
     rng = np.random.default_rng(7)
     ids = rng.integers(1, 512, size=(16, 32)).astype(np.int32)
@@ -272,234 +271,6 @@ def test_hf_param_conversion_roundtrip():
         np.ones((1, 8), np.int32), np.ones((1, 8), np.int32)
     )
     assert out.shape == (1, 16) and np.isfinite(out).all()
-
-
-def test_flash_attention_matches_xla_interpret():
-    """The Pallas flash-attention path (interpreted on CPU) must match the
-    explicit XLA attention within bf16 tolerance, including key padding."""
-    import dataclasses
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    cfg_x = NomicBertConfig(
-        vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
-        mlp_dim=128, max_tokens=128, attention_impl="xla",
-    )
-    enc_x = NomicEncoder(cfg_x, seed=3)
-    cfg_f = dataclasses.replace(cfg_x, attention_impl="flash")
-    enc_f = NomicEncoder(cfg_f, params=enc_x.params)
-
-    rng = np.random.default_rng(5)
-    ids = rng.integers(1, 256, size=(2, 128)).astype(np.int32)
-    mask = np.ones((2, 128), np.int32)
-    mask[0, 70:] = 0  # padded row exercises segment masking
-
-    a = enc_x.encode_tokens(ids, mask)
-    with pltpu.force_tpu_interpret_mode():
-        b = enc_f.encode_tokens(ids, mask)
-    cos = np.sum(a * b, axis=1)
-    assert cos.min() > 0.999, cos
-
-
-def test_fused_attention_matches_xla_interpret():
-    """The fused rotary+attention Pallas kernel (the "auto" serving
-    default; interpreted on CPU) must match the explicit XLA attention
-    within bf16 tolerance, including key padding."""
-    import dataclasses
-
-    cfg_x = NomicBertConfig(
-        vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
-        mlp_dim=128, max_tokens=128, attention_impl="xla",
-    )
-    enc_x = NomicEncoder(cfg_x, seed=3)
-    cfg_f = dataclasses.replace(cfg_x, attention_impl="fused")
-    enc_f = NomicEncoder(cfg_f, params=enc_x.params)
-
-    rng = np.random.default_rng(5)
-    ids = rng.integers(1, 256, size=(2, 128)).astype(np.int32)
-    mask = np.ones((2, 128), np.int32)
-    mask[0, 70:] = 0  # padded keys must not contribute
-
-    a = enc_x.encode_tokens(ids, mask)
-    b = enc_f.encode_tokens(ids, mask)
-    cos = np.sum(a * b, axis=1)
-    assert cos.min() > 0.999, cos
-
-
-def test_fused_attention_kernel_vs_einsum():
-    """Kernel-level identity: fused_attention_qkv == the reference
-    rotary + f32-logit einsum chain on the same operands (bf16 tolerance;
-    padded QUERY rows excluded — they are finite garbage by contract)."""
-    import math
-
-    import jax
-    import jax.numpy as jnp
-
-    from better_search_rag_rust_tpu.models.nomic import (
-        apply_rotary, rotary_tables)
-    from better_search_rag_rust_tpu.ops.attention_pallas import (
-        fused_attention_qkv, rotary_roll_tables)
-
-    B, H, S, hd = 2, 4, 64, 64
-    rng = np.random.default_rng(0)
-    qkv = jnp.asarray(
-        rng.standard_normal((B, S, 3, H, hd)).astype(np.float32),
-        dtype=jnp.bfloat16)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    cos, sin = rotary_tables(S, hd, base=1000.0)
-    mask = np.ones((B, S), np.int32)
-    mask[1, 40:] = 0
-    bias = jnp.asarray(np.where(mask, 0.0, -1e9).astype(np.float32))
-
-    qr = apply_rotary(q, jnp.asarray(cos), jnp.asarray(sin))
-    kr = apply_rotary(k, jnp.asarray(cos), jnp.asarray(sin))
-    logits = jnp.einsum("bshd,bthd->bhst", qr, kr,
-                        preferred_element_type=jnp.float32) / math.sqrt(hd)
-    logits = logits + bias[:, None, None, :]
-    probs = jax.nn.softmax(logits, axis=-1).astype(jnp.bfloat16)
-    ref = jnp.einsum("bhst,bthd->bshd", probs, v,
-                     preferred_element_type=jnp.float32)
-
-    c2, s2 = map(jnp.asarray, rotary_roll_tables(cos, sin))
-    out = fused_attention_qkv(
-        qkv.reshape(B, S, 3 * H * hd), c2, s2, bias, H,
-        1.0 / math.sqrt(hd), interpret=True,
-    ).reshape(B, S, H, hd)
-
-    a = np.asarray(ref, np.float32)[:, :40]
-    b = np.asarray(out, np.float32)[:, :40]
-    cossim = (a * b).sum() / (np.linalg.norm(a) * np.linalg.norm(b))
-    assert cossim > 0.999, cossim
-    assert np.abs(a - b).max() < 0.02, np.abs(a - b).max()
-
-
-def test_fused_attention_shape_guard_falls_back():
-    """Non-8-aligned sequence lengths cannot take the fused kernel; the
-    forward must silently fall back to xla_bf16 and still match the xla
-    reference (the guard is in NomicAttention, models/nomic.py)."""
-    import dataclasses
-
-    cfg_f = NomicBertConfig(
-        vocab_size=256, hidden_size=64, num_layers=1, num_heads=4,
-        mlp_dim=128, max_tokens=30, attention_impl="fused",
-    )
-    enc_f = NomicEncoder(cfg_f, seed=7)
-    cfg_x = dataclasses.replace(cfg_f, attention_impl="xla")
-    enc_x = NomicEncoder(cfg_x, params=enc_f.params)
-
-    ids = np.random.default_rng(1).integers(1, 256, size=(2, 30)).astype(np.int32)
-    mask = np.ones((2, 30), np.int32)
-    a = enc_f.encode_tokens(ids, mask)  # would crash if fused ran at S=30
-    b = enc_x.encode_tokens(ids, mask)
-    assert np.sum(a * b, axis=1).min() > 0.999
-
-
-def test_fused_bwd_head_blocking_odd_heads():
-    """The backward kernel's head-block sizing (hpb heads per grid step
-    for Mosaic's 128-lane rule) must stay exact in the fallback arm too:
-    an ODD head count with hd % 128 != 0 forces hpb=heads (no smaller
-    divisor meets the lane rule), which is a different grid/liveness
-    shape than production's hd=64/hpb=2. Grad must equal the autodiff of
-    the same math regardless of blocking."""
-    import math
-
-    import jax
-    import jax.numpy as jnp
-
-    from better_search_rag_rust_tpu.ops.attention_pallas import (
-        fused_attention_qkv, fused_attention_qkv_diff, rotary_roll_tables)
-
-    B, S, H, HD = 4, 16, 3, 16  # hpb search: 16*h % 128 != 0 for h<=3
-    rng = np.random.default_rng(7)
-    qkv = jnp.asarray(rng.standard_normal((B, S, 3 * H * HD)), jnp.float32)
-    bias = jnp.zeros((B, S), jnp.float32)
-    ang = np.outer(np.arange(S), 1.0 / 1000.0 ** (np.arange(0, HD, 2) / HD))
-    c2, s2 = rotary_roll_tables(
-        jnp.asarray(np.cos(ang), jnp.float32),
-        jnp.asarray(np.sin(ang), jnp.float32))
-    scale = 1.0 / math.sqrt(HD)
-
-    def loss_fused(q):
-        return jnp.sum(
-            fused_attention_qkv_diff(q, c2, s2, bias, H, scale, True) ** 2)
-
-    def attn_jnp(q):
-        """Pure-jnp replica of the kernel math (f32 inputs -> the
-        kernel's astype(v.dtype) casts are identity here), so autodiff
-        gives the exact reference gradient with no custom blocking."""
-        outs = []
-        for h in range(H):
-            q0 = q[:, :, (0 * H + h) * HD:(0 * H + h + 1) * HD]
-            k0 = q[:, :, (1 * H + h) * HD:(1 * H + h + 1) * HD]
-            v = q[:, :, (2 * H + h) * HD:(2 * H + h + 1) * HD]
-            qr = q0 * c2 + jnp.roll(q0, HD // 2, axis=-1) * s2
-            kr = k0 * c2 + jnp.roll(k0, HD // 2, axis=-1) * s2
-            logits = jnp.einsum("bsd,btd->bst", qr, kr) * scale
-            logits = logits + bias[:, None, :]
-            p = jax.nn.softmax(logits, axis=-1)
-            outs.append(jnp.einsum("bst,btd->bsd", p, v))
-        return jnp.concatenate(outs, axis=-1)
-
-    # forward parity first (pins the replica to the kernel)
-    fwd = fused_attention_qkv(qkv, c2, s2, bias, H, scale, interpret=True)
-    np.testing.assert_allclose(np.asarray(fwd, np.float64),
-                               np.asarray(attn_jnp(qkv), np.float64),
-                               rtol=1e-5, atol=1e-5)
-    g_fused = jax.grad(loss_fused)(qkv)
-    g_ref = jax.grad(lambda q: jnp.sum(attn_jnp(q) ** 2))(qkv)
-    np.testing.assert_allclose(
-        np.asarray(g_fused, np.float64), np.asarray(g_ref, np.float64),
-        rtol=1e-4, atol=1e-4)
-
-
-def test_fused_attention_gradients_match_xla():
-    """The fused kernel's custom VJP (flash-style recompute backward) must
-    produce parameter gradients matching the XLA attention's autodiff
-    within bf16 tolerance (cosine per leaf > 0.99)."""
-    import dataclasses
-
-    import jax
-    import jax.numpy as jnp
-
-    from better_search_rag_rust_tpu.models.nomic import NomicBertModel
-
-    cfg_f = NomicBertConfig(
-        vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
-        mlp_dim=128, max_tokens=64, attention_impl="fused",
-    )
-    cfg_x = dataclasses.replace(cfg_f, attention_impl="xla")
-    mf, mx = NomicBertModel(cfg_f), NomicBertModel(cfg_x)
-
-    rng = np.random.default_rng(5)
-    ids = jnp.asarray(rng.integers(1, 256, size=(2, 64)), jnp.int32)
-    mask = np.ones((2, 64), np.int32)
-    mask[1, 40:] = 0
-    mask = jnp.asarray(mask)
-    params = mf.init(jax.random.PRNGKey(0), ids, mask)["params"]
-    probe = jnp.asarray(rng.standard_normal((2, 64, 64)), jnp.float32)
-
-    def loss(model):
-        def f(p):
-            h = model.apply({"params": p}, ids, mask).astype(jnp.float32)
-            return jnp.sum(h * probe)
-        return f
-
-    gf = jax.grad(loss(mf))(params)
-    gx = jax.grad(loss(mx))(params)
-    flat_f = jax.tree_util.tree_leaves_with_path(gf)
-    flat_x = dict(jax.tree_util.tree_leaves_with_path(gx))
-    checked = 0
-    for path, leaf_f in flat_f:
-        leaf_x = flat_x[path]
-        a = np.asarray(leaf_f, np.float64).ravel()
-        b = np.asarray(leaf_x, np.float64).ravel()
-        na, nb = np.linalg.norm(a), np.linalg.norm(b)
-        if na < 1e-6 and nb < 1e-6:
-            continue
-        cos = float(a @ b / (na * nb))
-        assert cos > 0.99, (jax.tree_util.keystr(path), cos)
-        checked += 1
-    assert checked > 10  # all layers' weights actually compared
 
 
 def test_classic_bert_gelu_backbone():
@@ -665,3 +436,178 @@ def test_collect_many_matches_collect():
     # singleton window degrades to plain collect
     one = svc.collect_many([svc.dispatch(svc.tokenize(["solo text"]))])
     np.testing.assert_array_equal(one[0], svc.get_embeddings(["solo text"]))
+
+
+# ---------------------------------------------------------------------------
+# Attention: the cuDNN wrapper's plumbing, checked through JAX's XLA
+# implementation of the same call (cuDNN itself runs only on the card)
+# ---------------------------------------------------------------------------
+
+#: Valid lengths per row at S=48: full, tail-padded, single token, mixed
+#: per-row lengths, and an odd length.
+_PAD_PATTERNS = {
+    "full": [48, 48],
+    "tail_padded": [30, 30],
+    "single_token": [1, 48],
+    "mixed": [48, 17],
+    "odd": [37, 5],
+}
+
+
+def _qkv(seed, b=2, s=48, h=4, d=16):
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    return [jnp.asarray(rng.standard_normal((b, s, h, d)), jnp.float32)
+            for _ in range(3)]
+
+
+def _mask_for(lengths, s=48):
+    return (np.arange(s)[None, :] < np.asarray(lengths)[:, None]).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("pattern", sorted(_PAD_PATTERNS))
+def test_padded_attention_matches_f32_xla(pattern):
+    """``padded_attention`` (the call the cuDNN path makes, here through
+    JAX's own XLA implementation) equals the f32-logit einsum chain with an
+    additive key-padding bias on every valid query row."""
+    import jax.numpy as jnp
+
+    from better_search_rag_rust_tpu.models.nomic import (
+        padded_attention, seq_lengths, xla_attention)
+
+    q, k, v = _qkv(1)
+    mask = _mask_for(_PAD_PATTERNS[pattern])
+    bias = jnp.asarray(np.where(mask, 0.0, -1e9)[:, None, None, :],
+                       jnp.float32)
+    lengths = seq_lengths(jnp.asarray(mask))
+    got = np.asarray(padded_attention(q, k, v, lengths, implementation="xla"))
+    want = np.asarray(xla_attention(q, k, v, bias))
+    valid = mask.astype(bool)
+    np.testing.assert_allclose(got[valid], want[valid], atol=2e-5)
+
+
+def test_padded_attention_gradient_matches_f32_xla():
+    """The gradient through the padded call equals the einsum chain's on
+    the valid rows (padded query rows carry no loss)."""
+    import jax
+    import jax.numpy as jnp
+
+    from better_search_rag_rust_tpu.models.nomic import (
+        padded_attention, seq_lengths, xla_attention)
+
+    q, k, v = _qkv(2)
+    mask = _mask_for(_PAD_PATTERNS["mixed"])
+    bias = jnp.asarray(np.where(mask, 0.0, -1e9)[:, None, None, :],
+                       jnp.float32)
+    lengths = seq_lengths(jnp.asarray(mask))
+    probe = jnp.asarray(mask, jnp.float32)[:, :, None, None] * _qkv(3)[0]
+
+    def loss(fn):
+        return lambda q_, k_, v_: jnp.sum(fn(q_, k_, v_) * probe)
+
+    g_got = jax.grad(loss(lambda a, b, c: padded_attention(
+        a, b, c, lengths, implementation="xla")), argnums=(0, 1, 2))(q, k, v)
+    g_want = jax.grad(loss(lambda a, b, c: xla_attention(a, b, c, bias)),
+                      argnums=(0, 1, 2))(q, k, v)
+    for a, b in zip(g_got, g_want):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=2e-5)
+
+
+def test_seq_lengths_from_right_padded_mask():
+    """Mask -> cuDNN sequence lengths: the count of valid tokens, clamped
+    to 1 so an all-padding batch-fill row still attends somewhere."""
+    import jax.numpy as jnp
+
+    from better_search_rag_rust_tpu.models.nomic import seq_lengths
+
+    mask = np.zeros((4, 8), np.int32)
+    mask[0] = 1
+    mask[1, :3] = 1
+    mask[2, :1] = 1
+    lengths = np.asarray(seq_lengths(jnp.asarray(mask)))
+    assert lengths.dtype == np.int32
+    np.testing.assert_array_equal(lengths, [8, 3, 1, 1])
+
+
+@pytest.mark.parametrize("platform,impl,dtype,want", [
+    ("gpu", "auto", "bfloat16", "cudnn"),
+    ("gpu", "auto", "float32", "xla"),
+    ("cpu", "auto", "bfloat16", "xla"),
+    ("cpu", "xla_bf16", "bfloat16", "xla_bf16"),
+    ("gpu", "xla", "bfloat16", "xla"),
+])
+def test_resolve_attention_impl_by_platform(platform, impl, dtype, want):
+    import jax.numpy as jnp
+
+    from better_search_rag_rust_tpu.models.nomic import resolve_attention_impl
+
+    assert resolve_attention_impl(impl, jnp.dtype(dtype), platform) == want
+
+
+def test_resolve_attention_impl_rejects_unknown():
+    from better_search_rag_rust_tpu.models.nomic import resolve_attention_impl
+
+    with pytest.raises(ValueError, match="attention_impl"):
+        resolve_attention_impl("fused")
+    with pytest.raises(ValueError, match="platform"):
+        resolve_attention_impl("auto", platform="metal")
+
+
+def test_cudnn_attention_raises_off_gpu():
+    """Asking for cuDNN where there is none fails loudly — no silent
+    fallback to another implementation."""
+    cfg = NomicBertConfig(
+        vocab_size=64, hidden_size=32, num_layers=1, num_heads=2,
+        mlp_dim=32, max_tokens=8, attention_impl="cudnn",
+    )
+    enc = NomicEncoder(cfg, seed=0)
+    with pytest.raises(Exception, match="(?i)cudnn"):
+        enc.encode_tokens(np.ones((1, 8), np.int32), np.ones((1, 8), np.int32))
+
+
+@pytest.mark.parametrize("activation", ["swiglu", "gelu"])
+def test_init_params_tree_matches_hf_conversion(activation):
+    """``init_params`` builds exactly the tree ``convert_hf_params`` fills
+    (names, shapes, float32), so a random-init model and a checkpoint are
+    interchangeable."""
+    import jax
+
+    from better_search_rag_rust_tpu.models.nomic import (
+        convert_hf_params, init_params)
+
+    cfg = NomicBertConfig(
+        vocab_size=64, hidden_size=16, num_layers=2, num_heads=2,
+        mlp_dim=32, max_tokens=8, activation=activation,
+    )
+    d, m = cfg.hidden_size, cfg.mlp_dim
+    rng = np.random.default_rng(0)
+
+    def w(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    state = {
+        "embeddings.word_embeddings.weight": w(cfg.vocab_size, d),
+        "embeddings.token_type_embeddings.weight": w(2, d),
+        "emb_ln.weight": w(d), "emb_ln.bias": w(d),
+    }
+    for i in range(cfg.num_layers):
+        pre = f"encoder.layers.{i}"
+        state.update({
+            f"{pre}.attn.Wqkv.weight": w(3 * d, d),
+            f"{pre}.attn.out_proj.weight": w(d, d),
+            f"{pre}.attn.out_proj.bias": w(d),
+            f"{pre}.norm1.weight": w(d), f"{pre}.norm1.bias": w(d),
+            f"{pre}.norm2.weight": w(d), f"{pre}.norm2.bias": w(d),
+            f"{pre}.mlp.fc2.weight": w(d, m), f"{pre}.mlp.fc2.bias": w(d),
+        })
+        if activation == "swiglu":
+            state[f"{pre}.mlp.fc1.weight"] = w(2 * m, d)
+        else:
+            state[f"{pre}.mlp.fc1.weight"] = w(m, d)
+            state[f"{pre}.mlp.fc1.bias"] = w(m)
+    shapes = lambda t: jax.tree.map(lambda x: (x.shape, str(x.dtype)), t)
+    assert shapes(init_params(cfg, seed=3)) == shapes(
+        convert_hf_params(state, cfg))
+

@@ -2,7 +2,7 @@
 
 Spawns two real processes that form a JAX cluster via BSR_COORDINATOR (the
 same env contract `launch.maybe_init_distributed` uses in production),
-drive ingest -> barrier -> merge -> from_parquet_sharded -> search ->
+drive ingest -> barrier -> merge -> from_file_sharded -> search ->
 gather_timings, and asserts the merged result equals an in-process
 single-host run on the identical corpus. The reference's only distributed
 validation was running the binary under mpiexec (makefile:13-14); this is

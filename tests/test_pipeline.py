@@ -395,7 +395,7 @@ def test_encoder_meta_recorded_and_drift_warned(corpus_dir, tmp_path, caplog):
 
     # the package logger does not propagate (own stdout handler); let
     # caplog see it for the duration of this test
-    logger = logging.getLogger("bsr_tpu")
+    logger = logging.getLogger("bsr")
     logger.propagate = True
     try:
         # same numerics: no warning
@@ -417,49 +417,6 @@ def test_encoder_meta_recorded_and_drift_warned(corpus_dir, tmp_path, caplog):
         assert "encoder numerics differ" in caplog.text
     finally:
         logger.propagate = False
-
-
-def test_planner_profiles_produce_sane_tiles(tmp_path):
-    """_plan() must produce valid (q_tile, macro) on every device kind in
-    the profile table plus unknown kinds (VERDICT r2 weak #4: constants were
-    v5e-hardcoded). Exactness never depends on the plan, but the tiles must
-    always be usable."""
-    import jax
-    import numpy as np
-
-    from better_search_rag_rust_tpu.config import SearchConfig
-    from better_search_rag_rust_tpu.ops.device_profile import (
-        PROFILES,
-        resolve_profile,
-    )
-    from better_search_rag_rust_tpu.ops.engine import SearchEngine
-    from better_search_rag_rust_tpu.parallel.mesh import create_mesh
-    from better_search_rag_rust_tpu.store.device_store import DeviceStore
-
-    mesh = create_mesh()
-    rng = np.random.default_rng(0)
-    store = DeviceStore.from_host(
-        rng.standard_normal((4096, 256), dtype=np.float32), mesh
-    )
-    for kind in list(PROFILES) + ["FutureChip v9", ""]:
-        eng = SearchEngine(
-            store, SearchConfig(top_k=50, device_kind=kind)
-        )
-        q_tile, macro = eng._plan(512, 50)
-        assert q_tile >= 8 and q_tile % 8 == 0
-        assert macro >= 1024 and macro % 1024 == 0
-        # the engine still answers correctly under every profile
-        q = store.effective_matrix()[:8]
-        ids, _ = eng.search(q, k=5)
-        assert ids[0][0] == 0
-
-    # override beats the table
-    prof = resolve_profile("TPU v4", hbm_gbps=123.0, slice_ns=7.0)
-    assert prof.hbm_gbps == 123.0 and prof.slice_ns == 7.0
-    assert prof.hbm_gb == 32  # non-overridden fields keep table values
-    # longest-prefix matching: v5 lite != v5p
-    assert resolve_profile("TPU v5 lite").hbm_gb == 16
-    assert resolve_profile("TPU v5p").hbm_gb == 95
 
 
 def test_pipeline_local_encode_mesh(corpus_dir, tmp_path):
@@ -488,36 +445,6 @@ def test_pipeline_local_encode_mesh(corpus_dir, tmp_path):
     emb = hash_pipe.encoder.get_embeddings(["class A {}", "class B {}"])
     assert emb.shape == (2, 96)
     assert "dp_devices" not in hash_pipe.encoder.numerics
-
-
-def test_planner_routes_full_dim_10m_int8_to_argmax_rescore():
-    """The search_10m_int8 suite shape (10M x 768 int8 — only fittable on
-    one chip via the int8 lattice) must auto-resolve to the sims-free
-    rescore kernel with the high-dim argmax geometry (sub=64 units), not
-    the dense sims path whose 2*Q*R*4 traffic would be ~80 GB/batch."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from better_search_rag_rust_tpu.config import SearchConfig
-    from better_search_rag_rust_tpu.ops.engine import SearchEngine
-    from better_search_rag_rust_tpu.parallel.mesh import create_mesh
-    from better_search_rag_rust_tpu.store.device_store import DeviceStore
-
-    import jax
-
-    mesh = create_mesh(shape=(1,), axis_names=("data",),
-                       devices=jax.devices()[:1])
-    # Planner-only probe: tiny data array, honest shape metadata.
-    data = jnp.zeros((128, 768), dtype=jnp.int8)
-    store = DeviceStore(
-        data=data, mesh=mesh, num_rows=10_000_000, dim=768,
-        per_device_rows=10_027_008, chunk=65536,
-    )
-    eng = SearchEngine(store, SearchConfig(top_k=100, store_dtype="int8"))
-    assert eng.kernel_name(100) == "rescore"
-    assert eng.config.rescore_argmax != "off"
-    sub, block, cpg = eng._rescore_geometry(100)
-    assert (sub, block) == (64, 128)
 
 
 def test_update_reembeds_edited_files(corpus_dir, tmp_path):
@@ -732,7 +659,7 @@ def test_update_pre_attrs_store_is_append_only(corpus_dir, tmp_path):
     )
     (corpus_dir / "a" / "Novel.java").write_text("class Novel { int q; }")
 
-    # (the "no recorded file identity" warning is logged via the bsr_tpu
+    # (the "no recorded file identity" warning is logged via the bsr
     # logger, which does not propagate to pytest's capture — the behavior
     # asserts below are the contract)
     stats = Pipeline(cfg.replace(skip_process=True)).update()

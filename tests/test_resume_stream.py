@@ -159,9 +159,8 @@ def test_resume_with_corrupt_marker_restarts(corpus, tmp_path):
 def test_packed_collect_bitexact(mesh8):
     """The single-readback packed buffer reproduces the two-transfer
     collect exactly. Ids travel VALUE-converted to f32 — NOT bitcast:
-    small int32 bit patterns are f32 denormals and TPU hardware flushes
-    denormals to zero in copies (observed on chip as recall 1.0 -> 0.001
-    while CPU tests stayed green)."""
+    small int32 bit patterns are f32 denormals, which accelerators may
+    flush to zero in copies while CPU tests stay green."""
     mat = mock_embeddings(300, dim=32, seed=47)
     store = DeviceStore.from_host(mat, mesh8, dtype="float32", chunk_rows=128)
     engine = SearchEngine(store, SearchConfig(kernel="global"))
@@ -344,13 +343,7 @@ def test_ingest_inflight_depth_same_shard(corpus, tmp_path, depth):
     ref = Pipeline(ref_cfg)
     assert ref.ingest_shard().embeddings == 20
     ref_store = local_store_path(ref_cfg.store.dir, 0)
-    ref_mat = np.asarray(
-        __import__("pyarrow.parquet", fromlist=["read_table"])
-        .read_table(ref_store)
-        .to_pandas()
-        .iloc[:, 0]
-        .tolist()
-    )
+    ref_mat = np.load(ref_store)
     ref_paths = json.loads(ref_store.with_suffix(".paths.json").read_text())
 
     cfg = dataclasses.replace(
@@ -361,13 +354,7 @@ def test_ingest_inflight_depth_same_shard(corpus, tmp_path, depth):
     p = Pipeline(cfg)
     assert p.ingest_shard().embeddings == 20
     spath = local_store_path(cfg.store.dir, 0)
-    mat = np.asarray(
-        __import__("pyarrow.parquet", fromlist=["read_table"])
-        .read_table(spath)
-        .to_pandas()
-        .iloc[:, 0]
-        .tolist()
-    )
+    mat = np.load(spath)
     np.testing.assert_array_equal(mat, ref_mat)
     assert json.loads(
         spath.with_suffix(".paths.json").read_text()) == ref_paths

@@ -132,7 +132,7 @@ def test_zero_query_all_distances_one(mesh8):
 
 
 def test_bf16_store_matches_equal_memory_oracle(mesh8):
-    """bf16 shards in HBM with f32 accumulation must match a serial f32 scan
+    """bf16 shards on device with f32 accumulation must match a serial f32 scan
     over the same bf16-rounded data (BASELINE.json equal-memory harness)."""
     mat, engine = _engine(mesh8, n=512, dtype="bfloat16", seed=8)
     queries = mock_embeddings(4, dim=64, seed=13)
@@ -190,7 +190,7 @@ def test_global_kernel_query_tiling(mesh8):
     mat = mock_embeddings(512, dim=32, seed=27)
     store = DeviceStore.from_host(mat, mesh8, dtype="float32", chunk_rows=128)
     engine = SearchEngine(store, SearchConfig(kernel="global"))
-    engine._plan = lambda q, k: (8, 10**9)  # force query tiling
+    engine._plan = lambda q: (8, 10**9)  # force query tiling
     queries = mock_embeddings(37, dim=32, seed=28)  # non-multiple of tile
     ids, dists = engine.search(queries, k=9)
     o_ids, o_dists = engine.oracle_topk(queries, k=9)
@@ -210,41 +210,26 @@ def test_duplicate_ties_still_exact_with_verified_selection(mesh8):
     np.testing.assert_allclose(dists, o_dists, atol=1e-7)
 
 
-def test_pallas_kernel_odd_chunk_rows(mesh8):
-    """per-device rows that are a multiple of the chunk but NOT of 8*block
-    (e.g. odd --chunk-rows) must still run on the pallas path (the kernel
-    pads rows to 8*block internally)."""
-    mat = mock_embeddings(1500, dim=32, seed=61)
-    store = DeviceStore.from_host(mat, mesh8, dtype="float32", chunk_rows=136)
-    assert store.per_device_rows % (8 * 128) != 0
-    engine = SearchEngine(store, SearchConfig(kernel="pallas"))
-    queries = mock_embeddings(3, dim=32, seed=62)
-    ids, dists = engine.search(queries, k=7)
-    o_ids, o_dists = engine.oracle_topk(queries, k=7)
-    np.testing.assert_array_equal(ids, o_ids)
-
-
 def test_macro_chunk_scan_exact(mesh8):
     """Shards larger than the sims-buffer budget scan in macro chunks with a
     running merge; result must stay oracle-exact (incl. duplicates crossing
-    chunk boundaries) on both the XLA and the Pallas scoring path."""
+    chunk boundaries)."""
     rng = np.random.default_rng(70)
     mat = rng.standard_normal((6000, 32)).astype(np.float32)
     mat[4000] = mat[10]  # duplicate pair straddling macro chunks
     mat[5500:5510] = mat[100]  # tie cluster in the last chunk
     queries = mat[rng.integers(0, 6000, 16)]
-    for kernel in ("global", "pallas"):
-        store = DeviceStore.from_host(mat, mesh8, dtype="float32",
-                                      chunk_rows=256)
-        # per-device rows = 768; budget forces >= 3 macro chunks per device
-        engine = SearchEngine(
-            store,
-            SearchConfig(kernel=kernel, sims_buffer_bytes=256 * 512 * 4),
-        )
-        ids, dists = engine.search(queries, k=17)
-        o_ids, o_dists = engine.oracle_topk(queries, k=17)
-        np.testing.assert_array_equal(ids, o_ids)
-        np.testing.assert_allclose(dists, o_dists, atol=1e-7)
+    store = DeviceStore.from_host(mat, mesh8, dtype="float32", chunk_rows=256)
+    # per-device rows = 768; a 16-query tile at this budget scores 256-row
+    # macro chunks, so every device runs 3 chunks
+    engine = SearchEngine(
+        store, SearchConfig(kernel="global", sims_buffer_bytes=16 * 256 * 4),
+    )
+    assert engine._plan(16) == (16, 256)
+    ids, dists = engine.search(queries, k=17)
+    o_ids, o_dists = engine.oracle_topk(queries, k=17)
+    np.testing.assert_array_equal(ids, o_ids)
+    np.testing.assert_allclose(dists, o_dists, atol=1e-7)
 
 
 def test_select_blocks_approx_certificate_matches_exact():
@@ -291,204 +276,11 @@ def test_k_exceeds_rows_on_pallas_macro_path(mesh8):
     mat = mock_embeddings(300, dim=32, seed=72)
     store = DeviceStore.from_host(mat, mesh8, dtype="float32", chunk_rows=128)
     engine = SearchEngine(
-        store, SearchConfig(kernel="pallas", sims_buffer_bytes=128 * 512 * 4)
+        store, SearchConfig(kernel="global", sims_buffer_bytes=128 * 512 * 4)
     )
     ids, dists = engine.search(mat[:4], k=250)  # k > per-device rows
     o_ids, o_dists = engine.oracle_topk(mat[:4], k=250)
     np.testing.assert_array_equal(ids, o_ids)
-
-
-def test_rescore_kernel_exact(mesh8):
-    """The sims-free rescore kernel (blockmax-only pass + store-row gather +
-    recomputed scores) must match the oracle exactly, including duplicates,
-    zero rows, negative-similarity regimes and row padding (zero pad rows
-    rescore to 0.0 and MUST be masked, or they would beat negative sims)."""
-    rng = np.random.default_rng(80)
-    mat = rng.standard_normal((3000, 32)).astype(np.float32)
-    mat[100] = mat[7]
-    mat[2000:2010] = mat[50]
-    mat[123] = 0.0
-    queries = np.concatenate([
-        mat[rng.integers(0, 3000, 12)],
-        -mat[:4],  # anti-correlated: all sims negative for some rows
-    ])
-    for dtype in ("float32", "bfloat16"):
-        store = DeviceStore.from_host(mat, mesh8, dtype=dtype, chunk_rows=256)
-        engine = SearchEngine(store, SearchConfig(kernel="rescore"))
-        assert engine.kernel_name(9) == "rescore"
-        ids, dists = engine.search(queries, k=9)
-        o_ids, o_dists = engine.oracle_topk(queries, k=9)
-        np.testing.assert_array_equal(ids, o_ids, err_msg=dtype)
-        np.testing.assert_allclose(dists, o_dists, atol=1e-6)
-
-
-def test_rescore_kernel_tiny_and_k_over_rows(mesh8):
-    mat = mock_embeddings(90, dim=16, seed=81)
-    store = DeviceStore.from_host(mat, mesh8, dtype="float32", chunk_rows=64)
-    engine = SearchEngine(store, SearchConfig(kernel="rescore"))
-    ids, _ = engine.search(mat[:3], k=80)  # k > per-device rows
-    o_ids, _ = engine.oracle_topk(mat[:3], k=80)
-    np.testing.assert_array_equal(ids, o_ids)
-
-
-def test_rescore_hierarchical_selection_path(mesh8):
-    """Force the superblock->block hierarchical selection branch
-    (nb >= 32*kb) and check exactness with tie clusters."""
-    rng = np.random.default_rng(82)
-    mat = rng.standard_normal((70000, 16)).astype(np.float32)
-    mat[40000:40032] = mat[100]  # 33-way duplicate cluster
-    store = DeviceStore.from_host(mat, mesh8, dtype="float32",
-                                  chunk_rows=1024)
-    engine = SearchEngine(store, SearchConfig(kernel="rescore"))
-    # per-device rows = 8960 -> nb = 70; kb = 2 -> hierarchical branch taken
-    queries = mat[rng.integers(0, 70000, 6)]
-    ids, _ = engine.search(queries, k=2)
-    o_ids, _ = engine.oracle_topk(queries, k=2)
-    np.testing.assert_array_equal(ids, o_ids)
-    # also a k large enough to cross superblock boundaries
-    ids40, _ = engine.search(mat[100:101], k=40)
-    o40, _ = engine.oracle_topk(mat[100:101], k=40)
-    np.testing.assert_array_equal(ids40, o40)
-
-
-def test_rescore_pallas_branch_interpret(mesh8):
-    """Force the Pallas rescore branch (two-level bm pass + fused
-    gather_rescore, interpret mode on CPU) and check oracle exactness —
-    the branch the engine takes on real TPUs with bf16 shards."""
-    from better_search_rag_rust_tpu.ops.topk import rescore_topk, serial_topk
-
-    rng = np.random.default_rng(90)
-    mat = rng.standard_normal((2100, 32)).astype(np.float32)
-    mat[700] = mat[3]
-    mat /= np.linalg.norm(mat, axis=1, keepdims=True)
-    queries = mat[rng.integers(0, 2100, 5)]
-
-    import jax.numpy as jnp
-
-    vals, ids = rescore_topk(
-        jnp.asarray(mat), jnp.asarray(queries), 11, jnp.int32(0), 2100,
-        q_tile=5, use_pallas=True,
-    )
-    o_ids, _ = serial_topk(mat, queries, 11)
-    np.testing.assert_array_equal(np.asarray(ids), o_ids)
-
-
-def test_rescore_pallas_two_level_high_dim_interpret(mesh8):
-    """The high-dim geometry (sub_block=16, cpg=8): two-level bm pass +
-    16-row-unit fused gather, interpret mode. Duplicates, a zero row and
-    anti-correlated queries exercise tie and masking discipline."""
-    from better_search_rag_rust_tpu.ops.topk import rescore_topk, serial_topk
-
-    rng = np.random.default_rng(91)
-    mat = rng.standard_normal((3100, 768)).astype(np.float32)
-    mat[700] = mat[3]
-    mat[2000:2010] = mat[50]
-    mat[123] = 0.0
-    norms = np.linalg.norm(mat, axis=1, keepdims=True)
-    mat /= np.where(norms == 0, 1.0, norms)
-    queries = np.concatenate([
-        mat[rng.integers(0, 3100, 6)],
-        -mat[:2],
-    ])
-
-    import jax.numpy as jnp
-
-    for k in (1, 10, 100):
-        vals, ids = rescore_topk(
-            jnp.asarray(mat), jnp.asarray(queries), k, jnp.int32(0), 3100,
-            q_tile=8, use_pallas=True, sub_block=16, block=128, cpg=8,
-        )
-        o_ids, _ = serial_topk(mat, queries, k)
-        np.testing.assert_array_equal(np.asarray(ids), o_ids, err_msg=f"k={k}")
-
-
-def test_gather_rescore_kernel_interpret():
-    """gather_rescore fetches each query's own candidate units straight
-    from the store ref and reproduces the big matmul's scores exactly
-    (interpret mode computes exact f32)."""
-    import jax.numpy as jnp
-    from better_search_rag_rust_tpu.ops.topk_pallas import gather_rescore
-
-    rng = np.random.default_rng(92)
-    R, D, T, KS, unit, cpg = 2048, 256, 16, 8, 16, 8
-    mat = rng.standard_normal((R, D)).astype(np.float32)
-    qs = rng.standard_normal((T, D)).astype(np.float32)
-    ids = np.sort(
-        rng.integers(0, R // unit, size=(T, KS)).astype(np.int32), axis=1
-    )
-    out = np.asarray(gather_rescore(
-        jnp.asarray(qs), jnp.asarray(mat), jnp.asarray(ids),
-        unit=unit, cpg=cpg, interpret=True,
-    ))
-    direct = qs @ mat.T
-    for t in range(T):
-        for j in range(KS):
-            u = ids[t, j]
-            np.testing.assert_allclose(
-                out[t, j * unit:(j + 1) * unit],
-                direct[t, u * unit:(u + 1) * unit], rtol=1e-5,
-            )
-
-
-def test_matmul_blockmax2_interpret():
-    """The transposed bm pass emits exact attained sub-maxima and masks
-    padded rows."""
-    import jax.numpy as jnp
-    from better_search_rag_rust_tpu.ops.topk_pallas import (
-        matmul_blockmax2_only,
-    )
-
-    rng = np.random.default_rng(93)
-    R, D, T, valid = 2048, 128, 16, 1900
-    mat = rng.standard_normal((R, D)).astype(np.float32)
-    qs = rng.standard_normal((T, D)).astype(np.float32)
-    bms = matmul_blockmax2_only(
-        jnp.asarray(qs), jnp.asarray(mat), valid,
-        interpret=True, sub=16, block=128,
-    )
-    sims = qs @ mat.T
-    sims[:, valid:] = -3.0
-    np.testing.assert_allclose(
-        np.asarray(bms).T, sims.reshape(T, R // 16, 16).max(axis=2),
-        rtol=1e-5,
-    )
-
-
-def test_bm2_emit_width_and_coarse_output():
-    """bm2_emit_width picks the widest Mosaic-legal coarse width (block
-    when rt/block is 8-aligned, a divisor like 256 at the 10M-style
-    block=1024 geometry, 0 when nothing legal), and the fused coarse
-    output holds exact attained maxima at that width."""
-    import jax.numpy as jnp
-    from better_search_rag_rust_tpu.ops.topk_pallas import (
-        bm2_emit_width, matmul_blockmax2_only,
-    )
-
-    # rt == rows (single tile): always legal at the block width itself
-    assert bm2_emit_width(2048, 2048, 16, 128) == 128
-    # multi-tile, rt/block 8-aligned: block width
-    assert bm2_emit_width(1 << 20, 2048, 32, 128) == 128
-    # the 10M geometry: rt/1024 = 2 sublanes illegal, 256 legal
-    assert bm2_emit_width(1 << 23, 2048, 128, 1024) == 256
-    # nothing legal above sub -> 0 (rt=512, block=512: 512 gives 1
-    # sublane, 256 gives 2, both non-8-aligned and rt != rows)
-    assert bm2_emit_width(1 << 20, 512, 128, 512) == 0
-
-    rng = np.random.default_rng(97)
-    R, D, T, valid = 4096, 128, 16, 3800
-    mat = rng.standard_normal((R, D)).astype(np.float32)
-    qs = rng.standard_normal((T, D)).astype(np.float32)
-    bms, bmi = matmul_blockmax2_only(
-        jnp.asarray(qs), jnp.asarray(mat), valid,
-        interpret=True, sub=16, block=1024, emit_block=True,
-        emit_width=256,
-    )
-    sims = qs @ mat.T
-    sims[:, valid:] = -3.0
-    np.testing.assert_allclose(
-        np.asarray(bmi).T, sims.reshape(T, R // 256, 256).max(axis=2),
-        rtol=1e-5,
-    )
 
 
 def test_fast_topk_matches_lax_topk():
@@ -520,338 +312,6 @@ def test_fast_topk_matches_lax_topk():
     np.testing.assert_array_equal(np.asarray(fp), np.asarray(tp))
 
 
-def test_refine_uids_arithmetic_identity():
-    """The refine tail derives unit ids from pool positions arithmetically
-    (uids = gids[pos // gw] * gw + pos % gw) and gathers keys directly at
-    those units — both must equal the take-based formulation they replaced
-    (pool gather + pos take), for any gids/pos."""
-    rng = np.random.default_rng(3)
-    t, ng, gw, kg, ks = 16, 31, 24, 9, 40
-    pool = kg * gw
-    gids = np.sort(
-        np.array([rng.choice(ng, size=kg, replace=False) for _ in range(t)]),
-        axis=1).astype(np.int32)
-    pos = np.array([rng.choice(pool, size=ks, replace=False)
-                    for _ in range(t)]).astype(np.int32)
-    key2 = rng.integers(-(2**31), 2**31 - 1,
-                        size=(t, ng * gw), dtype=np.int64).astype(np.int32)
-    # take-based (replaced) form
-    cand_uids = (gids[:, :, None] * gw + np.arange(gw)[None, None, :]
-                 ).reshape(t, pool)
-    uids_ref = np.take_along_axis(cand_uids, pos, axis=1)
-    key3 = key2.reshape(t, ng, gw)
-    cand_key = np.take_along_axis(key3, gids[:, :, None], axis=1
-                                  ).reshape(t, pool)
-    key_ref = np.take_along_axis(cand_key, pos, axis=1)
-    # arithmetic form (ops/topk.py tile_fn)
-    uids = np.take_along_axis(gids, pos // gw, axis=1) * gw + pos % gw
-    key_sel = np.take_along_axis(key2, uids, axis=1)
-    np.testing.assert_array_equal(uids, uids_ref)
-    np.testing.assert_array_equal(key_sel, key_ref)
-
-
-def test_bm2_argmax_emission_interpret():
-    """With emit_argmax the bm pass also emits each unit's argmax row
-    (lowest attaining index) and second max (max excluding that row —
-    equal to the max for duplicate maxima), packed into one conservative
-    int32 key. Validated against NumPy on tie-heavy data: exact argmax
-    recovery, and the key bracketed by [exact m2 key, exact + 2^8)."""
-    import jax.numpy as jnp
-    from better_search_rag_rust_tpu.ops.topk_pallas import (
-        PAD_SIM, m2_sort_key, matmul_blockmax2_only,
-    )
-
-    rng = np.random.default_rng(93)
-    R, D, T, sub, block = 1024, 64, 16, 16, 128
-    mat = rng.standard_normal((R, D)).astype(np.float32)
-    mat[32:40] = mat[16]       # same-unit + cross-unit duplicates
-    mat[100] = mat[101]        # in-unit duplicate pair (tied max)
-    qs = rng.standard_normal((T, D)).astype(np.float32)
-    valid = 1000               # pad tail, incl. a partially padded unit
-
-    bms, key, bm = matmul_blockmax2_only(
-        jnp.asarray(qs), jnp.asarray(mat), jnp.int32(valid),
-        interpret=True, sub=sub, block=block, emit_block=True,
-        emit_argmax=True,
-    )
-    sims = qs @ mat.T
-    sims[:, valid:] = PAD_SIM
-    s3 = sims.reshape(T, R // sub, sub)
-    np.testing.assert_allclose(np.asarray(bms).T, s3.max(axis=2), rtol=1e-6)
-    # argmax must match NumPy wherever the unit's top-two gap is clearly
-    # resolved (near-ties may rank differently between NumPy's and XLA's
-    # f32 accumulation orders; the kernel need only be self-consistent)
-    key_k = np.asarray(key).T
-    arg_k = key_k & 0x7F
-    arg_ref = s3.argmax(axis=2)
-    srt = np.sort(s3, axis=2)
-    clear = (srt[:, :, -1] - srt[:, :, -2]) > 1e-4
-    np.testing.assert_array_equal(arg_k[clear], arg_ref[clear])
-    # packed key: decoding its high bits recovers the second max to
-    # within one 128-ulp rounding bucket (~2e-5 absolute at |x| ~ 1);
-    # the kernel's f32 accumulation differs from NumPy's by ~1e-6, so
-    # the conservative side gets that much slack here (the EXACT bracket
-    # is proven on the one-hot store below).
-    masked = np.where(
-        np.arange(sub)[None, None, :] == arg_k[:, :, None], PAD_SIM, s3
-    )
-    m2_ref = masked.max(axis=2).astype(np.float32)
-    decoded = _decode_key_m2(key_k)
-    assert np.all(decoded >= m2_ref - 1e-4)
-    assert np.all(decoded <= m2_ref + 1e-4 * np.maximum(np.abs(m2_ref), 1))
-    # the key transform itself is order-preserving, incl. across signs
-    probe = np.array([-2.0, -1.0, -0.0, 0.0, 1e-8, 0.5, 1.0],
-                     dtype=np.float32)
-    pk = np.asarray(m2_sort_key(jnp.asarray(probe)))
-    assert np.all(np.diff(pk) >= 0) and pk[2] == pk[3]
-    np.testing.assert_allclose(
-        np.asarray(bm).T, sims.reshape(T, R // block, block).max(axis=2),
-        rtol=1e-6,
-    )
-
-    # --- one-hot store: every score is a single product, bitwise
-    # identical in any arithmetic -> the exact conservative-and-tight
-    # bracket [exact m2 key, exact + 2^8) must hold bit-for-bit.
-    mat1 = np.zeros((R, D), dtype=np.float32)
-    cols = rng.integers(0, D, size=R)
-    scale = rng.standard_normal(R).astype(np.float32)
-    mat1[np.arange(R), cols] = scale
-    bms1, key1 = matmul_blockmax2_only(
-        jnp.asarray(qs), jnp.asarray(mat1), jnp.int32(R),
-        interpret=True, sub=sub, block=block, emit_argmax=True,
-    )
-    sims1 = (qs[:, cols] * scale[None, :]).astype(np.float32)
-    s31 = sims1.reshape(T, R // sub, sub)
-    key1_k = np.asarray(key1).T
-    arg1 = key1_k & 0x7F
-    masked1 = np.where(
-        np.arange(sub)[None, None, :] == arg1[:, :, None], PAD_SIM, s31
-    )
-    m21 = masked1.max(axis=2).astype(np.float32)
-    exact = np.asarray(m2_sort_key(jnp.asarray(m21))).astype(np.int64)
-    assert np.all(key1_k.astype(np.int64) >= exact)
-    assert np.all(key1_k.astype(np.int64) < exact + (1 << 8))
-
-
-def test_bm2_int8_packed_emission_interpret():
-    """int8 argmax emission takes the integer-domain packed tournament
-    (topk_pallas._int8_bm2_emit): scores are EXACT int32 dots, so the
-    oracle is exact too — argmax must be the lowest index attaining the
-    integer max on every unit (tie-heavy data included), bms must equal
-    f32(int max) * INT8_INV_SCALE2 bitwise, and the packed key must hold
-    the exact-m2 bracket [exact key, exact + 2^8) bit-for-bit."""
-    import jax.numpy as jnp
-    from better_search_rag_rust_tpu.ops.quantize import (
-        INT8_INV_SCALE2, quantize_unit_host,
-    )
-    from better_search_rag_rust_tpu.ops.topk_pallas import (
-        PAD_SIM, m2_sort_key, matmul_blockmax2_only,
-    )
-
-    rng = np.random.default_rng(95)
-    R, D, T, sub, block = 1024, 64, 16, 16, 128
-    mat = rng.standard_normal((R, D)).astype(np.float32)
-    mat /= np.linalg.norm(mat, axis=1, keepdims=True)
-    mat8 = quantize_unit_host(mat)
-    mat8[32:40] = mat8[16]     # same-unit + cross-unit duplicates
-    mat8[100] = mat8[101]      # in-unit duplicate pair (tied max)
-    mat8[200:216] = mat8[200]  # a whole unit of one duplicated row
-    qs = rng.standard_normal((T, D)).astype(np.float32)
-    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
-    qs8 = quantize_unit_host(qs)
-    valid = 1000               # partial unit 62, fully padded unit 63
-
-    bms, key, bm = matmul_blockmax2_only(
-        jnp.asarray(qs8), jnp.asarray(mat8), jnp.int32(valid),
-        interpret=True, sub=sub, block=block, emit_block=True,
-        emit_argmax=True,
-    )
-    acc = qs8.astype(np.int32) @ mat8.astype(np.int32).T   # exact oracle
-    acc[:, valid:] = -(1 << 24)
-    a3 = acc.reshape(T, R // sub, sub)
-    m1 = a3.max(axis=2)
-    arg_ref = a3.argmax(axis=2)                            # lowest index
-    bms_ref = np.where(
-        m1 == -(1 << 24), PAD_SIM,
-        m1.astype(np.float32) * np.float32(INT8_INV_SCALE2))
-    np.testing.assert_array_equal(np.asarray(bms).T, bms_ref)
-    key_k = np.asarray(key).T
-    np.testing.assert_array_equal(key_k & 0x7F, arg_ref)
-    # exact integer m2 (max excluding the argmax ROW; equals the max for
-    # duplicate maxima) -> scaled f32 -> exact packed-key bracket
-    masked = np.where(
-        np.arange(sub)[None, None, :] == arg_ref[:, :, None],
-        -(1 << 24), a3)
-    m2i = masked.max(axis=2)
-    m2f = np.where(
-        m2i == -(1 << 24), PAD_SIM,
-        m2i.astype(np.float32) * np.float32(INT8_INV_SCALE2))
-    exact = np.asarray(m2_sort_key(jnp.asarray(m2f))).astype(np.int64)
-    assert np.all(key_k.astype(np.int64) >= exact)
-    assert np.all(key_k.astype(np.int64) < exact + (1 << 8))
-    # fused coarse maxima reduce from the packed-path bms
-    np.testing.assert_array_equal(
-        np.asarray(bm).T,
-        bms_ref.reshape(T, R // block, block // sub).max(axis=2))
-
-
-def _decode_key_m2(key: np.ndarray) -> np.ndarray:
-    """Upper bound on the packed key's m2: invert the monotone uint
-    transform of the key's high 25 bits (arg cleared)."""
-    u = (key.astype(np.int64) & 0xFFFFFFFF).astype(np.uint32) ^ np.uint32(
-        0x80000000)
-    u &= np.uint32(0xFFFFFF80)
-    neg = (u & np.uint32(0x80000000)) == 0
-    b = np.where(neg, ~u, u & np.uint32(0x7FFFFFFF))
-    return b.astype(np.uint32).view(np.float32)
-
-
-def test_rescore_argmax_fast_and_fallback_interpret():
-    """The argmax fast path (candidates from in-kernel argmaxes + bounded
-    danger gather) must equal the full-gather path AND the oracle, on a
-    clean store (fast branch), a same-unit-duplicate store (danger
-    gather exercised), and a duplicate-saturated store (capacity
-    overflow -> lax.cond fallback)."""
-    import jax.numpy as jnp
-    from better_search_rag_rust_tpu.ops.topk import rescore_topk, serial_topk
-
-    rng = np.random.default_rng(94)
-
-    def check(mat, queries, k, msg):
-        mat = np.ascontiguousarray(mat, dtype=np.float32)
-        norms = np.linalg.norm(mat, axis=1, keepdims=True)
-        mat = mat / np.where(norms == 0, 1.0, norms)
-        args = (jnp.asarray(mat), jnp.asarray(queries), k, jnp.int32(0),
-                mat.shape[0])
-        kw = dict(q_tile=8, use_pallas=True, sub_block=16, block=128, cpg=8)
-        v_fast, i_fast = rescore_topk(*args, argmax_fast=True, **kw)
-        v_slow, i_slow = rescore_topk(*args, argmax_fast=False, **kw)
-        o_ids, _ = serial_topk(mat, queries, k)
-        np.testing.assert_array_equal(np.asarray(i_fast), o_ids,
-                                      err_msg=f"{msg} (fast vs oracle)")
-        np.testing.assert_array_equal(np.asarray(i_fast),
-                                      np.asarray(i_slow),
-                                      err_msg=f"{msg} (fast vs slow)")
-        # Values: the fast path reports the bm pass's maxima, the slow
-        # path gather_rescore's recomputation. On real TPUs both are the
-        # same Mosaic bf16 dot (bitwise, chip-verified); interpret-mode
-        # f32 matmuls of different orientation agree only to rounding.
-        np.testing.assert_allclose(np.asarray(v_fast),
-                                   np.asarray(v_slow), rtol=1e-5,
-                                   err_msg=f"{msg} vals")
-
-    # clean store: danger count ~0, fast branch taken (distinct scores —
-    # the fast path's bm-vs-gather arithmetic mix cannot flip ~1e-3 gaps)
-    mat = rng.standard_normal((4096, 768))
-    queries = mat[rng.integers(0, 4096, 8)].astype(np.float32)
-    check(mat, queries, 10, "clean")
-
-    # one-hot store: every score is a SINGLE product (bitwise identical
-    # in both the bm pass's and gather_rescore's arithmetic), so exact
-    # tie discipline is checkable in interpret mode. Rows 100-102 are a
-    # same-unit triple (danger gather exercised); rows hot at the same
-    # dim across units are exact cross-unit ties.
-    mat2 = np.zeros((2048, 768), dtype=np.float32)
-    mat2[np.arange(2048), np.arange(2048) % 768] = 1.0
-    mat2[100] = mat2[101] = mat2[102] = 0.0
-    mat2[100:103, 99] = 1.0                 # unit 6 holds a triple
-    q2 = np.zeros((2, 768), dtype=np.float32)
-    for rank, d in enumerate([99, 5, 33, 200, 321, 7, 450, 600]):
-        q2[0, d] = 0.9 - 0.1 * rank
-    q2[1, 5] = 1.0                          # plain cross-unit tie query
-    check(mat2, q2, 8, "one-hot danger")
-
-    # sub=32 and sub=64 (the engine's argmax-path geometry for high-dim
-    # stores; 64 since the dummy-id danger padding made wide units cheap)
-    from better_search_rag_rust_tpu.ops.topk import rescore_topk as _rt
-    import jax.numpy as _jnp
-    m2n = mat2 / np.maximum(np.linalg.norm(mat2, axis=1, keepdims=True), 1)
-    o32, _ = serial_topk(m2n.astype(np.float32), q2, 8)
-    for sb, cg in ((32, 8), (64, 4)):
-        _v, i32 = _rt(_jnp.asarray(m2n.astype(np.float32)),
-                      _jnp.asarray(q2), 8, _jnp.int32(0), 2048, q_tile=8,
-                      use_pallas=True, sub_block=sb, block=128, cpg=cg,
-                      argmax_fast=True)
-        np.testing.assert_array_equal(np.asarray(i32), o32,
-                                      err_msg=f"one-hot sub={sb}")
-
-    # duplicate-saturated: every unit's second max equals its max ->
-    # danger overflow -> fallback branch
-    mat3 = np.repeat(rng.standard_normal((128, 768)), 32, axis=0)
-    queries3 = mat3[::301][:4].astype(np.float32)
-    check(mat3, queries3, 50, "saturated")
-
-
-def test_rescore_superblock_group_selection_interpret():
-    """Large stores select SUPERBLOCK groups (8 blocks) and gather unit
-    maxima straight from bms (nb >= 32*kb, nb % 8 == 0 — one selection
-    level fewer than block-select-then-refine). Pin the path with small
-    k on a store big enough to trigger it, with same-unit duplicates
-    (danger gather) and a cross-unit tie, fast and slow variants vs the
-    oracle."""
-    import jax.numpy as jnp
-    from better_search_rag_rust_tpu.ops.topk import rescore_topk, serial_topk
-
-    rng = np.random.default_rng(96)
-    kw = dict(q_tile=8, use_pallas=True, sub_block=32, block=128, cpg=8)
-
-    # Clean random store (distinct scores; the interpret-mode bm-vs-gather
-    # arithmetic mix cannot flip ~1e-3 gaps): k=3 -> kb=3, nb=128 >= 32*3
-    # -> superblock path (ng=16, gw=32). Fast, slow and oracle must agree.
-    mat = rng.standard_normal((16384, 128)).astype(np.float32)
-    mat /= np.linalg.norm(mat, axis=1, keepdims=True)
-    queries = np.concatenate(
-        [mat[[40, 5000, 9999]], rng.standard_normal((5, 128))]
-    ).astype(np.float32)
-    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
-    args = (jnp.asarray(mat), jnp.asarray(queries), 3, jnp.int32(0), 16384)
-    v_fast, i_fast = rescore_topk(*args, argmax_fast=True, **kw)
-    v_slow, i_slow = rescore_topk(*args, argmax_fast=False, **kw)
-    o_ids, _ = serial_topk(mat, queries, 3)
-    np.testing.assert_array_equal(np.asarray(i_slow), o_ids)
-    np.testing.assert_array_equal(np.asarray(i_fast), o_ids)
-    np.testing.assert_allclose(np.asarray(v_fast), np.asarray(v_slow),
-                               rtol=1e-5)
-
-    # One-hot store (every score a single product — bitwise in any
-    # arithmetic, so exact tie discipline is checkable in interpret
-    # mode): same-unit triple (danger gather) + cross-unit exact ties,
-    # k=2 -> kb=2, nb=64 >= 32*2 -> superblock path.
-    mat2 = np.zeros((8192, 768), dtype=np.float32)
-    mat2[np.arange(8192), np.arange(8192) % 768] = 1.0
-    mat2[200] = mat2[201] = mat2[202] = 0.0
-    mat2[200:203, 99] = 1.0              # same-unit triple at dim 99
-    q2 = np.zeros((3, 768), dtype=np.float32)
-    for rank, d in enumerate([99, 5, 33, 450]):
-        q2[0, d] = 0.9 - 0.1 * rank
-    q2[1, 5] = 1.0                       # ~10-way exact cross-unit tie
-    q2[2, 767] = 1.0
-    args2 = (jnp.asarray(mat2), jnp.asarray(q2), 2, jnp.int32(0), 8192)
-    v2f, i2f = rescore_topk(*args2, argmax_fast=True, **kw)
-    v2s, i2s = rescore_topk(*args2, argmax_fast=False, **kw)
-    o2, _ = serial_topk(mat2, q2, 2)
-    np.testing.assert_array_equal(np.asarray(i2s), o2)
-    np.testing.assert_array_equal(np.asarray(i2f), o2)
-
-
-def test_engine_rescore_argmax_off_matches(mesh8):
-    """SearchConfig(rescore_argmax="off") must give identical results to
-    the default on the rescore kernel."""
-    rng = np.random.default_rng(95)
-    mat = rng.standard_normal((3000, 32)).astype(np.float32)
-    mat[100] = mat[7]
-    queries = mat[rng.integers(0, 3000, 6)]
-    store = DeviceStore.from_host(mat, mesh8, dtype="float32",
-                                  chunk_rows=256)
-    e_on = SearchEngine(store, SearchConfig(kernel="rescore"))
-    e_off = SearchEngine(store, SearchConfig(kernel="rescore",
-                                             rescore_argmax="off"))
-    ids_on, d_on = e_on.search(queries, k=9)
-    ids_off, d_off = e_off.search(queries, k=9)
-    np.testing.assert_array_equal(ids_on, ids_off)
-    np.testing.assert_allclose(d_on, d_off, atol=0)
-
-
 def test_serial_oracle_orders_by_raw_sims_not_distance():
     """The oracle must select by RAW f32 similarity (the engine's
     comparator). ``1 - sim`` loses up to one ulp near sim ~ 0: two
@@ -873,180 +333,85 @@ def test_serial_oracle_orders_by_raw_sims_not_distance():
     np.testing.assert_array_equal(ids[0], [1, 0, 2])
 
 
-def test_auto_kernel_cost_model_picks_rescore_for_headline_shapes():
-    """Regression: the sub=32 argmax geometry must not flip the auto kernel
-    back to the dense sims path. The stale round-3 cost model charged the
-    full ks*sub*dim gather (which the argmax path does not perform) and
-    silently resolved 'pallas' at 1M x 768, dropping the measured headline
-    from 47.2k to 33.6k q/s on chip."""
-    from types import SimpleNamespace
-
-    import jax.numpy as jnp
-
-    from better_search_rag_rust_tpu.ops.engine import SearchEngine as SE
-
-    def eng_for(dim, rows, **cfg):
-        store = SimpleNamespace(
-            data=jnp.zeros((8, dim), jnp.bfloat16), per_device_rows=rows
-        )
-        return SE(store, SearchConfig(**cfg))
-
-    e = eng_for(768, 1 << 20)
-    assert e._rescore_geometry(100)[0] == 64  # argmax-path geometry
-    assert e._resolve_kernel(100) == "rescore"
-
-    # argmax off: round-3 full-gather model, sub=16 — still rescore at 768-d
-    e_off = eng_for(768, 1 << 20, rescore_argmax="off")
-    assert e_off._rescore_geometry(100)[0] == 16
-    assert e_off._resolve_kernel(100) == "rescore"
-
-    # low-dim huge store (the 10M x 256 suite shape)
-    assert eng_for(256, 10_158_080)._resolve_kernel(100) == "rescore"
-
-    # small stores stay on the proven sims path
-    assert eng_for(768, 1 << 18)._resolve_kernel(100) != "rescore"
-
-
-def test_int8_lowdim_routes_full_gather():
-    """int8 LOW-DIM stores skip the argmax fast path in auto mode: the
-    m2/argmax emission cannot hide under the halved-depth int8 MXU dot at
-    256-d (chip-measured 15.5 vs 13.5 ms/tile for the emission-free full
-    gather, scripts/proto_r3_fullg.py). High-dim int8 and bf16 low-dim
-    keep it (their dots are deep enough to hide the emission)."""
-    from types import SimpleNamespace
-
-    import jax.numpy as jnp
-
-    from better_search_rag_rust_tpu.ops.engine import SearchEngine as SE
-
-    def eng_for(dim, rows, dtype, **cfg):
-        store = SimpleNamespace(
-            data=jnp.zeros((8, dim), dtype), per_device_rows=rows
-        )
-        return SE(store, SearchConfig(**cfg))
-
-    assert not eng_for(256, 10_158_080, jnp.int8)._argmax_enabled()
-    assert eng_for(768, 10_158_080, jnp.int8)._argmax_enabled()
-    assert eng_for(256, 10_158_080, jnp.bfloat16)._argmax_enabled()
-    assert eng_for(768, 1 << 20, jnp.int8)._argmax_enabled()
-    # still the rescore kernel either way, and "on"/"off" stay forced
-    assert eng_for(256, 10_158_080, jnp.int8)._resolve_kernel(100) == "rescore"
-    assert not eng_for(768, 1 << 20, jnp.int8,
-                       rescore_argmax="off")._argmax_enabled()
-    assert eng_for(256, 10_158_080, jnp.int8,
-                   rescore_argmax="on")._argmax_enabled()
+def _matrix_store(case):
+    """``(store matrix, queries, k, store kwargs, config kwargs)`` for one
+    adversarial case of the exactness matrix."""
+    rng = np.random.default_rng(80)
+    if case == "duplicates":
+        mat = rng.standard_normal((3000, 32)).astype(np.float32)
+        mat[100] = mat[7]
+        mat[2000:2010] = mat[50]  # 11-way duplicate cluster
+        queries = np.concatenate([mat[[7, 50, 100, 2005]], -mat[:2]])
+        return mat, queries, 9, {"chunk_rows": 256}, {}
+    if case == "shard_boundary_ties":
+        base = mock_embeddings(8, dim=32, seed=52)
+        mat = np.tile(base, (32, 1))  # 256 rows: every row 32x, every shard
+        return mat, mat[:3], 40, {"chunk_rows": 128}, {}
+    if case == "zero_rows":
+        mat = mock_embeddings(300, dim=32, seed=4)
+        mat[[10, 37, 299]] = 0.0  # distance exactly 1.0
+        queries = np.concatenate([mat[:2], np.zeros((1, 32), np.float32)])
+        return mat, queries, 20, {"chunk_rows": 128}, {}
+    if case == "k_over_shard_rows":
+        mat = mock_embeddings(90, dim=16, seed=81)
+        return mat, mat[:3], 80, {"chunk_rows": 64}, {}
+    if case == "matryoshka_256":
+        mat = mock_embeddings(600, dim=384, seed=33)
+        return mat, mat[[1, 200, 599]], 12, {
+            "chunk_rows": 128, "matryoshka_dim": 256}, {}
+    if case == "macro_chunked":
+        mat = rng.standard_normal((6000, 32)).astype(np.float32)
+        mat[4000] = mat[10]  # duplicate pair straddling macro chunks
+        mat[5500:5510] = mat[100]  # tie cluster in the last chunk
+        queries = mat[rng.integers(0, 6000, 16)]
+        return mat, queries, 17, {"chunk_rows": 256}, {
+            "sims_buffer_bytes": 16 * 256 * 4}
+    if case == "padded_tail":
+        mat = mock_embeddings(1500, dim=32, seed=61)  # 188/device -> 272
+        return mat, mat[[0, 750, 1499]], 7, {"chunk_rows": 136}, {}
+    raise ValueError(case)
 
 
-def test_argmax_rescore_int8_duplicates_oracle_exact():
-    """The int8 argmax fast path stays oracle-exact with same-unit AND
-    cross-unit duplicates that force danger units, and matches the
-    full-gather path bitwise."""
-    import jax.numpy as jnp
-
-    from better_search_rag_rust_tpu.ops.quantize import (
-        int8_sims_host,
-        quantize_unit,
-    )
-    from better_search_rag_rust_tpu.ops.topk import rescore_topk
-
-    rng = np.random.default_rng(6)
-    R, D, K = 4096, 768, 32
-    mat = rng.standard_normal((R, D)).astype(np.float32)
-    mat /= np.linalg.norm(mat, axis=1, keepdims=True)
-    # same-unit and cross-unit duplicates around the query neighborhood
-    mat[5] = mat[3]
-    mat[900] = mat[3]
-    store = quantize_unit(jnp.asarray(mat))
-    q = np.asarray(store[np.arange(0, R, 129)])
-
-    vals_a, ids_a = rescore_topk(
-        store, jnp.asarray(q), K, jnp.int32(0), R, q_tile=64,
-        use_pallas=True, sub_block=64, block=128, cpg=4,
-        argmax_fast=True, danger_units=4,
-    )
-    vals_f, ids_f = rescore_topk(
-        store, jnp.asarray(q), K, jnp.int32(0), R, q_tile=64,
-        use_pallas=True, sub_block=64, block=128, cpg=4,
-        argmax_fast=False,
-    )
-    np.testing.assert_array_equal(np.asarray(ids_a), np.asarray(ids_f))
-    np.testing.assert_array_equal(np.asarray(vals_a), np.asarray(vals_f))
-    # NumPy integer oracle, (score desc, id asc) tie order
-    sims = int8_sims_host(np.asarray(store), q)
-    order = np.lexsort((np.arange(R)[None, :].repeat(len(q), 0), -sims),
-                       axis=1)[:, :K]
-    np.testing.assert_array_equal(np.asarray(ids_a), order)
-
-
-def test_f32_certified_oracle_exact(mesh8):
-    """The certified f32 two-stage path (bounded-error Mosaic selection +
-    XLA-HIGHEST rescore + in-program certificate,
-    ops/topk.rescore_f32_certified): forced on via
-    ``f32_certified="on"``, ranked ids must equal the serial oracle on a
-    store with duplicate clusters and a zero row, across k — whichever
-    certificate branch runs. Reference: the store dtype the reference
-    actually uses (src/vectorstore/polars.rs:35-37)."""
-    rng = np.random.default_rng(11)
-    mat = rng.standard_normal((16384, 64)).astype(np.float32)
-    mat[9000:9010] = mat[17]     # duplicate cluster
-    mat[4096] = 0.0              # zero row
-    store = DeviceStore.from_host(mat, mesh8, dtype="float32")
-    eng = SearchEngine(store, SearchConfig(f32_certified="on"))
-    assert eng._resolve_kernel(10) == "f32cert"
-    q = mat[rng.integers(0, 16384, 16)]
-    for k in (1, 10, 100):
-        ids, _ = eng.search(q, k=k)
-        o_ids, _ = eng.oracle_topk(q, k=k)
-        np.testing.assert_array_equal(ids, o_ids)
-
-
-def test_f32_certified_cert_fail_falls_back_exact(mesh8):
-    """An all-duplicate store makes the coverage certificate unprovable
-    (excluded units tie the boundary) — the ``lax.cond`` dense branch
-    must serve the exact answer, bitwise equal to the oracle."""
-    rng = np.random.default_rng(12)
-    dup = np.tile(rng.standard_normal((64, 64)).astype(np.float32),
-                  (128, 1))
-    store = DeviceStore.from_host(dup, mesh8, dtype="float32")
-    eng = SearchEngine(store, SearchConfig(f32_certified="on"))
-    ids, _ = eng.search(dup[:8], k=10)
-    o_ids, _ = eng.oracle_topk(dup[:8], k=10)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("case", [
+    "duplicates", "shard_boundary_ties", "zero_rows", "k_over_shard_rows",
+    "matryoshka_256", "macro_chunked", "padded_tail",
+])
+def test_global_exactness_matrix(mesh8, case, dtype):
+    """The dense two-stage kernel equals the oracle (ids exactly, distances
+    to f32 rounding) on every adversarial store shape, for every store
+    dtype."""
+    mat, queries, k, store_kw, cfg_kw = _matrix_store(case)
+    store = DeviceStore.from_host(mat, mesh8, dtype=dtype, **store_kw)
+    engine = SearchEngine(store, SearchConfig(kernel="auto", **cfg_kw))
+    assert engine.kernel_name(k) == "global"
+    ids, dists = engine.search(queries, k=k)
+    o_ids, o_dists = engine.oracle_topk(queries, k=k)
+    assert ids.shape == (len(queries), min(k, len(mat)))
     np.testing.assert_array_equal(ids, o_ids)
+    np.testing.assert_allclose(dists, o_dists, atol=1e-6)
 
 
-def test_f32_certified_routing_gates(mesh8):
-    """auto routing: CPU backends and non-f32 stores never take the
-    certified path; "off" disables it even when forced conditions hold;
-    k > 128 exceeds the fixed candidate budget and is refused."""
-    rng = np.random.default_rng(13)
-    mat = rng.standard_normal((4096, 64)).astype(np.float32)
-    f32 = DeviceStore.from_host(mat, mesh8, dtype="float32")
-    # auto on CPU: dense
-    assert SearchEngine(f32, SearchConfig())._resolve_kernel(10) != "f32cert"
-    # off beats on-conditions
-    assert SearchEngine(
-        f32, SearchConfig(f32_certified="off"))._resolve_kernel(10) != "f32cert"
-    # forced, but k over budget: refused
-    eng_on = SearchEngine(f32, SearchConfig(f32_certified="on"))
-    assert eng_on._resolve_kernel(10) == "f32cert"
-    assert eng_on._resolve_kernel(129) != "f32cert"
-    # bf16 store never routes even when forced
-    bf = DeviceStore.from_host(mat, mesh8, dtype="bfloat16")
-    assert SearchEngine(
-        bf, SearchConfig(f32_certified="on"))._resolve_kernel(10) != "f32cert"
+def test_unknown_kernel_rejected(mesh8):
+    """Kernel names outside ``SearchConfig.kernel``'s values raise."""
+    mat, engine = _engine(mesh8, n=10, kernel="rescore")
+    with pytest.raises(ValueError, match="unknown search kernel"):
+        engine.search(mat[0], k=3)
 
 
-def test_gather_rows_kernel_bit_exact():
-    """gather_rows is pure data movement: output rows must be bit-for-bit
-    store rows for arbitrary in-range unit ids (interpret mode)."""
-    import jax.numpy as jnp
+def test_serial_topk_partition_equals_full_stable_sort():
+    """The oracle's partition shortcut returns exactly the first k of a full
+    stable argsort by descending score, ties included."""
+    from better_search_rag_rust_tpu.ops.topk import serial_topk
 
-    from better_search_rag_rust_tpu.ops.topk_pallas import gather_rows
+    rng = np.random.default_rng(91)
+    sims = rng.integers(-20, 20, size=(6, 500)).astype(np.float32) / 20
+    sims[2] = 0.5  # one fully tied row
+    for k in (1, 7, 100, 499, 500, 800):
+        ids, dists = serial_topk(None, np.zeros((6, 4), np.float32), k,
+                                 sims=sims)
+        want = np.argsort(-sims, axis=1, kind="stable")[:, :min(k, 500)]
+        np.testing.assert_array_equal(ids, want)
+        np.testing.assert_array_equal(
+            dists, 1.0 - np.take_along_axis(sims, want, axis=1))
 
-    rng = np.random.default_rng(14)
-    shard = jnp.asarray(rng.standard_normal((1024, 128)).astype(np.float32))
-    ids = jnp.asarray(rng.integers(0, 128, size=(16, 32)).astype(np.int32))
-    out = gather_rows(shard, ids, unit=8, cpg=16, interpret=True)
-    want = np.asarray(shard).reshape(128, 8, 128)[np.asarray(ids)]
-    np.testing.assert_array_equal(np.asarray(out),
-                                  want.reshape(16, 256, 128))

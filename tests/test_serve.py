@@ -1,4 +1,4 @@
-"""Persistent JSONL serving: `Pipeline.serve` + the `bsr-tpu serve` loop.
+"""Persistent JSONL serving: `Pipeline.serve` + the `bsr serve` loop.
 
 The reference's only serving story is re-running the binary with
 SKIP_PROCESS=true for one hardcoded query index (src/main.rs:42-45,110-121);
@@ -179,7 +179,7 @@ def test_serve_loop_jsonl_round_trip(served):
 
 
 def test_serve_cli_wiring():
-    """`bsr-tpu serve --help` parses (subcommand registered with flags)."""
+    """`bsr serve --help` parses (subcommand registered with flags)."""
     from better_search_rag_rust_tpu.cli import main
 
     with pytest.raises(SystemExit) as exc:

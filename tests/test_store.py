@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 
 from better_search_rag_rust_tpu.store import (
-    ParquetVectorStore,
+    VectorStore,
     global_store,
     global_store_path,
     local_store,
@@ -15,7 +15,7 @@ from better_search_rag_rust_tpu.utils.testing import DIMENSION, mock_embeddings
 
 
 def test_append_and_count(tmp_path):
-    s = ParquetVectorStore(tmp_path / "s.parquet")
+    s = VectorStore(tmp_path / "s.npy")
     assert s.count == 0
     s.append(np.ones(DIMENSION, dtype=np.float32))
     s.append_many(mock_embeddings(4, seed=1))
@@ -23,7 +23,7 @@ def test_append_and_count(tmp_path):
 
 
 def test_get_roundtrip(tmp_path):
-    s = ParquetVectorStore(tmp_path / "s.parquet")
+    s = VectorStore(tmp_path / "s.npy")
     vecs = mock_embeddings(3, dim=8, seed=2)
     s.append_many(vecs)
     np.testing.assert_array_equal(s.get(1), vecs[1])
@@ -33,7 +33,7 @@ def test_get_roundtrip(tmp_path):
 
 def test_get_many_slice(tmp_path):
     # reference: polars.rs:121-156 — contiguous slice reads
-    s = ParquetVectorStore(tmp_path / "s.parquet")
+    s = VectorStore(tmp_path / "s.npy")
     vecs = mock_embeddings(10, dim=4, seed=3)
     s.append_many(vecs)
     np.testing.assert_array_equal(s.get_many((2, 5)), vecs[2:7])
@@ -44,29 +44,29 @@ def test_get_many_slice(tmp_path):
 
 def test_persist_reload_roundtrip(tmp_path):
     # reference: polars.rs:337-351
-    path = tmp_path / "sub" / "s.parquet"
-    s = ParquetVectorStore(path)
+    path = tmp_path / "sub" / "s.npy"
+    s = VectorStore(path)
     vecs = mock_embeddings(7, dim=16, seed=4)
     s.append_many(vecs)
     s.persist()
 
-    s2 = ParquetVectorStore(path, empty=False)
+    s2 = VectorStore(path, empty=False)
     assert s2.count == 7
     np.testing.assert_array_equal(s2.get_many(None), vecs)
 
 
 def test_open_missing_creates_empty_file(tmp_path):
-    # reference: polars.rs:50-77 — creates dirs + empty parquet on miss
-    path = tmp_path / "deep" / "dir" / "s.parquet"
-    s = ParquetVectorStore(path, empty=False)
+    # reference: polars.rs:50-77 — creates dirs + an empty store file on miss
+    path = tmp_path / "deep" / "dir" / "s.npy"
+    s = VectorStore(path, empty=False)
     assert s.count == 0
     assert path.exists()
 
 
 def test_reload_empty_errors_unless_forced(tmp_path):
     # reference: polars.rs:171-181,353-365
-    path = tmp_path / "s.parquet"
-    s = ParquetVectorStore(path)
+    path = tmp_path / "s.npy"
+    s = VectorStore(path)
     s.append_many(mock_embeddings(2, dim=4))
     with pytest.raises(IOError):
         s.reload(force=False)  # nothing persisted yet
@@ -75,7 +75,7 @@ def test_reload_empty_errors_unless_forced(tmp_path):
 
 
 def test_reset(tmp_path):
-    s = ParquetVectorStore(tmp_path / "s.parquet")
+    s = VectorStore(tmp_path / "s.npy")
     s.append_many(mock_embeddings(3, dim=4))
     s.reset()
     assert s.count == 0
@@ -83,18 +83,18 @@ def test_reset(tmp_path):
 
 def test_large_slice_reads(tmp_path):
     # reference: polars.rs:367-394 — 1000-row store slice reads
-    s = ParquetVectorStore(tmp_path / "s.parquet")
+    s = VectorStore(tmp_path / "s.npy")
     vecs = mock_embeddings(1000, dim=32, seed=5)
     s.append_many(vecs)
     s.persist()
-    s2 = ParquetVectorStore(s.path, empty=False)
+    s2 = VectorStore(s.path, empty=False)
     np.testing.assert_array_equal(s2.get_many((990, 10)), vecs[990:])
 
 
 def test_shard_naming(tmp_path):
     # reference: src/mpi_helpers/vectorstore.rs:5-20
-    assert local_store_path(tmp_path, 3).name == "rank_3.parquet"
-    assert global_store_path(tmp_path).name == "global.parquet"
+    assert local_store_path(tmp_path, 3).name == "rank_3.npy"
+    assert global_store_path(tmp_path).name == "global.npy"
 
 
 def test_merge_in_shard_order(tmp_path):
@@ -137,28 +137,42 @@ def test_merge_skips_empty_and_missing_shards(tmp_path):
     assert not partial_merge_marker(tmp_path).exists()
 
 
-def test_persisted_file_readable_by_pyarrow(tmp_path):
-    import pyarrow.parquet as pq
-
-    s = ParquetVectorStore(tmp_path / "s.parquet")
-    s.append_many(mock_embeddings(5, dim=8, seed=6))
+def test_persisted_file_readable_by_numpy(tmp_path):
+    s = VectorStore(tmp_path / "s.npy")
+    vecs = mock_embeddings(5, dim=8, seed=6)
+    s.append_many(vecs)
     s.persist()
-    table = pq.read_table(s.path)
-    assert table.num_rows == 5
-    assert table.column_names == ["embeddings"]
+    mat = np.load(s.path)
+    assert mat.dtype == np.float32 and mat.shape == (5, 8)
+    np.testing.assert_array_equal(mat, vecs)
+
+
+@pytest.mark.parametrize("content", [b"not a numpy file", "int64", "3-d"])
+def test_corrupt_store_file_rejected_at_open(tmp_path, content):
+    """A file that is not an [N, D] float32 matrix fails loudly at open
+    instead of serving garbage rows."""
+    path = tmp_path / "s.npy"
+    if content == "int64":
+        np.save(path, np.zeros((2, 3), dtype=np.int64))
+    elif content == "3-d":
+        np.save(path, np.zeros((2, 3, 4), dtype=np.float32))
+    else:
+        path.write_bytes(content)
+    with pytest.raises(ValueError):
+        VectorStore(path, empty=False)
 
 
 def test_merge_does_not_fabricate_missing_shards(tmp_path):
     """A missing shard is logged and skipped without creating an empty
-    parquet file on disk (a crashed ingest host must stay visibly missing)."""
+    store file on disk (a crashed ingest host must stay visibly missing)."""
     from better_search_rag_rust_tpu.store.vectorstore import (
-        ParquetVectorStore,
+        VectorStore,
         local_store_path,
         merge_vector_stores,
     )
     from better_search_rag_rust_tpu.utils.testing import mock_embeddings
 
-    st = ParquetVectorStore(local_store_path(tmp_path, 0), empty=True)
+    st = VectorStore(local_store_path(tmp_path, 0), empty=True)
     st.append_many(mock_embeddings(4, 16, seed=1))
     st.persist()
     # shard 1 missing entirely
@@ -168,10 +182,10 @@ def test_merge_does_not_fabricate_missing_shards(tmp_path):
 
 
 def test_truncate(tmp_path):
-    from better_search_rag_rust_tpu.store.vectorstore import ParquetVectorStore
+    from better_search_rag_rust_tpu.store.vectorstore import VectorStore
     from better_search_rag_rust_tpu.utils.testing import mock_embeddings
 
-    st = ParquetVectorStore(tmp_path / "t.parquet", empty=True)
+    st = VectorStore(tmp_path / "t.npy", empty=True)
     mat = mock_embeddings(10, 8, seed=2)
     st.append_many(mat)
     st.truncate(6)
@@ -186,20 +200,20 @@ def test_truncate(tmp_path):
 def test_take_matrix_detaches_writable(tmp_path):
     """take_matrix hands over ONE writable consolidated matrix and leaves
     the store empty — update()'s in-place mutation surface without the
-    transient 2x-store-size copy (ADVICE r3). Parquet-backed chunks are
-    mmap views (read-only); the handover must still be writable and
+    transient 2x-store-size copy. File-backed chunks are mmap views
+    (read-only); the handover must still be writable and
     mutations must not leak to disk until an explicit persist."""
     from better_search_rag_rust_tpu.store.vectorstore import (
-        ParquetVectorStore,
+        VectorStore,
     )
 
-    path = tmp_path / "s.parquet"
-    s = ParquetVectorStore(path, empty=True)
+    path = tmp_path / "s.npy"
+    s = VectorStore(path, empty=True)
     rows = np.arange(12, dtype=np.float32).reshape(4, 3)
     s.append_many(rows)
     s.persist()
 
-    loaded = ParquetVectorStore(path, empty=False)
+    loaded = VectorStore(path, empty=False)
     mat = loaded.take_matrix()
     assert mat.flags.writeable
     np.testing.assert_array_equal(mat, rows)
@@ -208,11 +222,11 @@ def test_take_matrix_detaches_writable(tmp_path):
     mat[0, 0] = 99.0  # in-place edit, then hand back + persist
     loaded.append_many(mat[:3])  # compaction keeps a leading slice
     loaded.persist()
-    again = ParquetVectorStore(path, empty=False)
+    again = VectorStore(path, empty=False)
     assert again.count == 3
     assert again.get(0)[0] == 99.0
 
     # empty store: degenerate matrix, still detached
-    empty = ParquetVectorStore(tmp_path / "e.parquet", empty=True)
+    empty = VectorStore(tmp_path / "e.npy", empty=True)
     m = empty.take_matrix()
     assert m.size == 0 and empty.count == 0

@@ -1,4 +1,4 @@
-"""Sliced Parquet reads, sharded device-store loading, Matryoshka truncation."""
+"""Sliced store-file reads, sharded device-store loading, Matryoshka truncation."""
 
 import numpy as np
 import pytest
@@ -7,8 +7,8 @@ from better_search_rag_rust_tpu.config import SearchConfig
 from better_search_rag_rust_tpu.ops import SearchEngine
 from better_search_rag_rust_tpu.store import DeviceStore
 from better_search_rag_rust_tpu.store.vectorstore import (
-    ParquetVectorStore,
-    parquet_row_count,
+    VectorStore,
+    store_row_count,
     read_matrix_slice,
 )
 from better_search_rag_rust_tpu.utils.testing import mock_embeddings
@@ -16,9 +16,9 @@ from better_search_rag_rust_tpu.utils.testing import mock_embeddings
 
 @pytest.fixture()
 def parquet_store(tmp_path):
-    path = tmp_path / "global.parquet"
+    path = tmp_path / "global.npy"
     mat = mock_embeddings(257, dim=48, seed=31)
-    st = ParquetVectorStore(path, empty=True)
+    st = VectorStore(path, empty=True)
     st.append_many(mat)
     st.persist()
     return path, mat
@@ -26,8 +26,8 @@ def parquet_store(tmp_path):
 
 def test_parquet_row_count_metadata_only(parquet_store, tmp_path):
     path, mat = parquet_store
-    assert parquet_row_count(path) == 257
-    assert parquet_row_count(tmp_path / "missing.parquet") == 0
+    assert store_row_count(path) == 257
+    assert store_row_count(tmp_path / "missing.npy") == 0
 
 
 def test_read_matrix_slice(parquet_store):
@@ -43,7 +43,7 @@ def test_read_matrix_slice(parquet_store):
 def test_from_parquet_sharded_matches_from_host(parquet_store, mesh8):
     path, mat = parquet_store
     a = DeviceStore.from_host(mat, mesh8, dtype="float32", chunk_rows=64)
-    b = DeviceStore.from_parquet_sharded(
+    b = DeviceStore.from_file_sharded(
         path, mesh8, dtype="float32", chunk_rows=64
     )
     assert (a.num_rows, a.dim) == (b.num_rows, b.dim)
@@ -83,7 +83,7 @@ def test_matryoshka_store_truncation(mesh8):
 
 def test_matryoshka_sharded_loader(parquet_store, mesh8):
     path, mat = parquet_store
-    store = DeviceStore.from_parquet_sharded(
+    store = DeviceStore.from_file_sharded(
         path, mesh8, dtype="float32", chunk_rows=64, matryoshka_dim=16
     )
     assert store.dim == 16 and store.matryoshka_from == 48
@@ -108,7 +108,7 @@ def test_profiling_utils_smoke(tmp_path):
     assert isinstance(memory_stats(), dict)
 
 
-def test_device_store_snapshot_roundtrip(tmp_path, mesh8):
+def test_device_store_snapshot_roundtrip(tmp_path, mesh8, dtype="bfloat16"):
     from better_search_rag_rust_tpu.store.device_cache import (
         load_device_store,
         save_device_store,
@@ -116,13 +116,14 @@ def test_device_store_snapshot_roundtrip(tmp_path, mesh8):
     )
 
     mat = mock_embeddings(300, dim=40, seed=71)
-    store = DeviceStore.from_host(mat, mesh8, dtype="bfloat16", chunk_rows=128)
+    store = DeviceStore.from_host(mat, mesh8, dtype=dtype, chunk_rows=128)
     cache = tmp_path / "snap"
     assert not snapshot_exists(cache)
     save_device_store(cache, store)
     assert snapshot_exists(cache)
 
     restored = load_device_store(cache, mesh8)
+    assert restored.data.dtype == store.data.dtype
     assert restored.num_rows == 300 and restored.dim == 40
     assert restored.chunk == store.chunk
     np.testing.assert_array_equal(
@@ -133,6 +134,11 @@ def test_device_store_snapshot_roundtrip(tmp_path, mesh8):
     ia, _ = SearchEngine(store, SearchConfig(kernel="global")).search(q, 7)
     ib, _ = SearchEngine(restored, SearchConfig(kernel="global")).search(q, 7)
     np.testing.assert_array_equal(ia, ib)
+
+
+def test_device_store_snapshot_roundtrip_int8(tmp_path, mesh8):
+    """int8 lattice rows survive the snapshot bit-for-bit too."""
+    test_device_store_snapshot_roundtrip(tmp_path, mesh8, dtype="int8")
 
 
 def test_device_store_snapshot_reshard(tmp_path, mesh8, mesh1):
@@ -179,7 +185,7 @@ def test_snapshot_reshard_fixes_chunk(tmp_path, mesh1, mesh8):
 
 def test_snapshot_dtype_mismatch_falls_back(tmp_path):
     """Requesting a different --store-dtype than the snapshot was built with
-    must fall back to Parquet (scores are per-dtype)."""
+    must fall back to the store file (scores are per-dtype)."""
     import dataclasses
 
     from better_search_rag_rust_tpu.config import (
@@ -210,4 +216,4 @@ def test_snapshot_dtype_mismatch_falls_back(tmp_path):
     )
     p = Pipeline(f32_cfg)
     store = p.load_device_store()
-    assert str(store.data.dtype) == "float32"  # parquet path, not snapshot
+    assert str(store.data.dtype) == "float32"  # store file, not snapshot
